@@ -1,15 +1,25 @@
-"""The SNN execution engine, ``queue_pallas`` path (port of ``repro.core.engine``).
+"""The SNN execution engine (port of ``repro.core.engine``).
 
 Static half: ``parse_spec`` / ``layer_geometry`` / ``compile_plan`` turn a
 spec string ("32C3-32C3-P3-...-10") into a hashable :class:`LayerPlan`,
 identical field by field to the reference's.
 
-Dynamic half: :func:`infer_batch` walks the plan over a (B, H, W, C) batch.
-Each event-driven conv stage (:class:`QueueBackend`) splits the incoming
-spike raster into per-phase window occupancy, derives the integer stats
-from it, and runs the fused compact+accumulate kernel
-(``kernels.ops.fused_spike_accum`` — the Hopper kernel on a CUDA tensor);
-the analog first layer is a plain conv. The neuron fire and the fused
+Dynamic half: :func:`infer_batch` walks the plan over a (B, H, W, C) batch
+through one of three registered backends:
+
+- ``queue_pallas`` (:class:`QueueBackend`, the serving default): each
+  event-driven conv stage splits the incoming spike raster into per-phase
+  window occupancy, derives the integer stats from it, and runs the fused
+  compact+accumulate kernel (``kernels.ops.fused_spike_accum`` — the Hopper
+  kernel on a CUDA tensor);
+- ``queue_ref``: the same plan through the scatter oracles of
+  ``kernels/ref.py``, honouring ``cfg.weight_bits`` — the parity anchor of
+  ``queue_sparse``;
+- ``queue_sparse`` (:class:`SparseQueueBackend`): the occupancy-gated
+  sparse kernel, sized per layer from two scalars pulled to the host, with
+  the int-quantized accumulate when ``cfg.weight_bits`` is set.
+
+The analog first layer is a plain conv. The neuron fire and the fused
 spike max-pool then run over T in a Python loop (``_conv_step``). The output
 layer accumulates over T, through the int8 ``quant_matmul`` kernel when
 ``cfg.weight_bits`` is set.
@@ -239,7 +249,9 @@ class SNNConfig(NamedTuple):
     v_init_frac: float = 0.5   # initial charge as a fraction of V_t
     weight_bits: int | None = None
                                # None = fp32 everywhere; when set, the output
-                               # layer runs the int8 quant_matmul head (the
+                               # layer runs the int8 quant_matmul head, and
+                               # the queue_sparse / queue_ref conv stages
+                               # accumulate int-quantized weights (the
                                # queue_pallas conv stages stay fp32)
 
 
@@ -320,62 +332,148 @@ class QueueBackend:
     registry, no reset, bias as constant input current each step, pooling
     fused into emission, segmented fixed-depth queues. The batch axis is
     native: all B*T queue-segment sets go through one kernel launch.
+
+    ``accum="kernel"`` (the ``queue_pallas`` backend) runs the fused
+    kernel B1; ``accum="ref"`` (the ``queue_ref`` backend) routes the same
+    plan through the scatter oracles — slow, but the engine-level parity
+    anchor ``queue_sparse`` is pinned against, and, like it, it executes
+    ``cfg.weight_bits`` in the conv stages.
     """
 
-    name = "queue_pallas"
     supports_batch = True
+
+    def __init__(self, accum: str = "kernel"):
+        if accum not in ("kernel", "ref"):
+            raise ValueError(
+                f"accum must be 'kernel' or 'ref', got {accum!r}")
+        self.accum = accum
+        self.name = {"kernel": "queue_pallas", "ref": "queue_ref"}[accum]
 
     def conv_layer_batch(self, cp, w, b, vth, cfg, raster, analog):
         """raster (B, T, H, W, C) 0/1 or analog (B, H, W, C) -> the emitted
         (B, T, H', W', C_out) raster and a per-sample :class:`LayerStats`."""
-        from ..kernels import ops as kops
-
-        model = get_neuron_model(cfg.mode)
-        T = cfg.T
-        fmt = cp.fmt
-        B = (raster if raster is not None else analog).shape[0]
-        dev = w.device
-
-        if raster is not None:
-            occ = phase_occupancy(fmt, raster)         # (B, T, C, K2, P)
-            keep = segment_keep(occ, cfg.depth)
-            tot = (occ > 0).sum(-1)                    # (B, T, C, K2)
-            capped = torch.clamp(tot, max=cfg.depth)
-            ev = capped.sum((1, 2, 3)).to(torch.int32)         # (B,)
-            q_words = ev
-            ovf = (tot - capped).sum((1, 2, 3)).to(torch.int32)
-
-            spans = span_map(fmt, cp.in_hw, dev)       # (K2, P)
-            ops = ((keep * spans).sum((1, 2, 3, 4))
-                   * cp.out_c).to(torch.int32)
-
-            K2, P = occ.shape[-2:]
-            cur = kops.fused_spike_accum(
-                occ.reshape(B * T, cp.in_c, K2, P), w,
-                K=cp.kernel, n_win=fmt.n_win, bits=fmt.bits_coord,
-                depth=cfg.depth, H=cp.in_hw, W=cp.in_hw)
-            cur = cur.reshape(B, T, cp.in_hw, cp.in_hw, cp.out_c) + b
+        if raster is None:
+            return _analog_layer(cp, cfg, analog, w, b, vth)
+        occ, _, _, ev, ovf, ops = _queue_stats(cp, cfg.depth, raster)
+        if self.accum == "ref":
+            out = _event_layer(cp, cfg, occ, w, b, vth, impl="ref",
+                               weight_bits=cfg.weight_bits)
         else:
-            z = torch.zeros((B,), dtype=torch.int32, device=dev)
-            ev, q_words, ovf = z, z, z
-            per_sample = analog.shape[1] * analog.shape[2] * analog.shape[3]
-            ops = torch.full((B,), T * per_sample * cp.out_c
-                             * cp.kernel * cp.kernel, dtype=torch.int32,
-                             device=dev)
-            c1 = conv_same_nhwc(analog, w) + b             # (B, H, W, C_out)
-            cur = c1[:, None].expand(B, T, *c1.shape[1:])
+            out = _event_layer(cp, cfg, occ, w, b, vth)
+        return out, _event_stats(out, ev, ovf, ops)
 
-        step = _conv_step(cp, model, vth)
-        carry = _init_carry_batch(cp, cfg, vth, w.dtype, B)
-        frames = []
-        for t in range(T):
-            carry, sp = step(carry, cur[:, t])
-            frames.append(sp)
-        out_raster = torch.stack(frames, dim=1)        # (B, T, H', W', C')
 
-        row = LayerStats(ev, out_raster.sum((1, 2, 3, 4)).to(torch.int32),
-                         ops, q_words, ovf)
-        return out_raster, row
+# The reference jits one program per stage (and per event bucket for the
+# sparse backend); PyTorch runs eagerly, so the per-stage bodies are plain
+# functions shared by all three backends.
+
+def _queue_stats(cp: ConvPlan, depth: int, raster):
+    """One event-driven stage's occupancy (B, T, C, K2, P), its per-queue
+    totals (B, T, C, K2) uncapped and capped at ``depth``, and the per-sample
+    stats (B,): events kept, events dropped, scalar adds."""
+    occ = phase_occupancy(cp.fmt, raster)
+    keep = segment_keep(occ, depth)
+    tot = (occ > 0).sum(-1)
+    capped = torch.clamp(tot, max=depth)
+    ev = capped.sum((1, 2, 3)).to(torch.int32)
+    ovf = (tot - capped).sum((1, 2, 3)).to(torch.int32)
+    spans = span_map(cp.fmt, cp.in_hw, raster.device)      # (K2, P)
+    ops = ((keep * spans).sum((1, 2, 3, 4)) * cp.out_c).to(torch.int32)
+    return occ, tot, capped, ev, ovf, ops
+
+
+def _event_stats(out, ev, ovf, ops):
+    """The stats row of an event-driven stage; its queue words are its
+    kept events."""
+    return LayerStats(ev, out.sum((1, 2, 3, 4)).to(torch.int32), ops, ev,
+                      ovf)
+
+
+def _run_steps(cp: ConvPlan, cfg: SNNConfig, vth, cur):
+    """The time loop: (B, T, H, W, C_out) currents -> (B, T, H', W', C')
+    emitted raster."""
+    step = _conv_step(cp, get_neuron_model(cfg.mode), vth)
+    carry = _init_carry_batch(cp, cfg, vth, cur.dtype, cur.shape[0])
+    frames = []
+    for t in range(cfg.T):
+        carry, sp = step(carry, cur[:, t])
+        frames.append(sp)
+    return torch.stack(frames, dim=1)
+
+
+def _event_layer(cp: ConvPlan, cfg: SNNConfig, occ, w, b, vth, **accum):
+    """Accumulate the (B, T, C, K2, P) occupancy through
+    ``kernels.ops.fused_spike_accum`` (``accum`` picks the realization:
+    the fused kernel, the sparse one or the oracles) and run the time loop
+    on it plus the bias."""
+    from ..kernels import ops as kops
+
+    B = occ.shape[0]
+    K2, P = occ.shape[-2:]
+    cur = kops.fused_spike_accum(
+        occ.reshape(B * cfg.T, cp.in_c, K2, P), w,
+        K=cp.kernel, n_win=cp.fmt.n_win, bits=cp.fmt.bits_coord,
+        depth=cfg.depth, H=cp.in_hw, W=cp.in_hw, **accum)
+    cur = cur.reshape(B, cfg.T, cp.in_hw, cp.in_hw, cp.out_c) + b
+    return _run_steps(cp, cfg, vth, cur)
+
+
+def _analog_layer(cp: ConvPlan, cfg: SNNConfig, analog, w, b, vth):
+    """The analog (constant-current) first layer — no events yet: one dense
+    conv, the same current every step. Returns the raster and its stats."""
+    B, H, W, C = analog.shape
+    c1 = conv_same_nhwc(analog, w) + b                 # (B, H, W, C_out)
+    out = _run_steps(cp, cfg, vth,
+                     c1[:, None].expand(B, cfg.T, *c1.shape[1:]))
+    z = torch.zeros((B,), dtype=torch.int32, device=w.device)
+    ops = torch.full((B,), cfg.T * H * W * C * cp.out_c * cp.kernel
+                     * cp.kernel, dtype=torch.int32, device=w.device)
+    return out, LayerStats(z, out.sum((1, 2, 3, 4)).to(torch.int32), ops, z,
+                           z)
+
+
+class SparseQueueBackend:
+    """Occupancy-gated sparse realization: the work drops with the rate.
+
+    Same queue semantics (drop rule, stats, neuron registry) as
+    ``queue_pallas``, but each event-driven stage pulls two scalars to the
+    host — its surviving-event total and its active-row count — and sizes
+    the sparse accumulate by them (``host_dispatch = True``): on the card
+    the active-row count is B3's ragged grid (``n_rows``), on the CPU the
+    bucketed event total is the plain version's list (``e_cap``).
+
+    ``cfg.weight_bits`` selects the int-quantized accumulate (int8 weights,
+    exact integer sums, one fp32 dequant) in the conv stages and the shared
+    output head. Logits and stats are pinned bit-exact against
+    ``queue_ref`` (``tests/test_torch_sparse.py``).
+    """
+
+    name = "queue_sparse"
+    supports_batch = True
+    host_dispatch = True
+
+    def conv_layer_batch(self, cp, w, b, vth, cfg, raster, analog):
+        from ..kernels.spike_sparse import event_bucket, max_kept_events
+
+        if raster is None:
+            return _analog_layer(cp, cfg, analog, w, b, vth)
+        occ, tot, capped, ev, ovf, ops = _queue_stats(cp, cfg.depth, raster)
+        total = capped.sum()                       # the occupancy gate ...
+        n_act = (tot > 0).flatten(2).any(-1).sum()  # ... and active (b, t)
+        N = raster.shape[0] * cfg.T
+        K2, P = occ.shape[-2:]
+        # audit: allow[host-sync] the occupancy gate: one scalar per layer
+        # sizes the event list
+        total_host = total.item()
+        # audit: allow[host-sync] same gate: the active-row count sizes the
+        # ragged grid
+        n_rows = n_act.item()
+        e_cap = event_bucket(
+            total_host, max_kept_events((N, cp.in_c, K2, P), cfg.depth))
+        out = _event_layer(cp, cfg, occ, w, b, vth, impl="sparse",
+                           e_cap=e_cap, n_rows=n_rows,
+                           weight_bits=cfg.weight_bits)
+        return out, _event_stats(out, ev, ovf, ops)
 
 
 _BACKENDS: dict[str, QueueBackend] = {}
@@ -397,6 +495,10 @@ def get_backend(name: str):
             f"{sorted(_BACKENDS)}") from None
 
 
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(_BACKENDS))
+
+
 # ---------------------------------------------------------------------------
 # Shared execution driver
 # ---------------------------------------------------------------------------
@@ -415,12 +517,39 @@ def _quant_head(counts, w, weight_bits: int):
                              w_q.contiguous(), one, w_scale)
 
 
+_HEAD_TILE = 256  # rows of every fp32 head product: 64 samples x T=4
+
+
+def _fp32_head(flat, w):
+    """(B, T, F) spikes -> (B, N): a product per time step, then the sum
+    over T, with row ``i`` independent of the batch it came in.
+
+    The (B*T, F) rows are zero-padded to whole tiles of ``_HEAD_TILE`` and
+    multiplied one fixed-shape tile at a time: cuBLAS picks its algorithm
+    by M, so a product over all rows would sum a row's K terms in an order
+    that depends on B. The sum over T is an explicit chain of adds, in
+    ``t`` order, for the same reason.
+    """
+    B, T, F = flat.shape
+    rows = flat.reshape(B * T, F)
+    n_pad = -(-rows.shape[0] // _HEAD_TILE) * _HEAD_TILE
+    if n_pad != rows.shape[0]:
+        rows = torch.cat([rows, rows.new_zeros((n_pad - rows.shape[0], F))])
+    prod = torch.cat([rows[i:i + _HEAD_TILE] @ w
+                      for i in range(0, n_pad, _HEAD_TILE)])
+    prod = prod[:B * T].reshape(B, T, -1)
+    out = prod[:, 0]
+    for t in range(1, T):
+        out = out + prod[:, t]
+    return out
+
+
 def _output_layer_batch(params_out, T: int, raster, weight_bits=None):
     """Final dense layer: accumulate Vm over all T steps, no threshold.
 
     ``raster`` is (B, T, H, W, C), so the flatten is (H, W, C) order, as in
-    the reference. fp32: a product per time step, then the sum over T; the
-    quantized head sums the counts over T first.
+    the reference. fp32: a product per time step, then the sum over T
+    (:func:`_fp32_head`); the quantized head sums the counts over T first.
     """
     w, b = params_out["w"], params_out["b"]
     B = raster.shape[0]
@@ -428,7 +557,7 @@ def _output_layer_batch(params_out, T: int, raster, weight_bits=None):
     if weight_bits is not None and T <= 127:
         logits = _quant_head(flat.sum(1), w, weight_bits) + b * T
     else:
-        logits = (flat @ w).sum(1) + b * T
+        logits = _fp32_head(flat, w) + b * T
     ev = (flat > 0).sum((1, 2)).to(torch.int32)
     z = torch.zeros((B,), dtype=torch.int32, device=raster.device)
     row = LayerStats(ev, z, ev * w.shape[1], z, z)
@@ -502,11 +631,11 @@ def infer_batch(params, thresholds, cfg: SNNConfig, images, *,
     ``device.resolve_device``); params and images are moved there.
 
     **Mask contract**: rows are independent — the convs batch over B, the
-    time loop is elementwise per row, and the fused kernel gives each row
-    its own blocks with a fixed summation order — so row ``i`` does not
-    depend on which other rows share the batch. Padding a bucket and
-    slicing the valid prefix (:func:`infer_batch_masked`) equals the
-    unpadded call.
+    time loop is elementwise per row, the fused and sparse kernels give
+    each row its own blocks with a fixed summation order, and the fp32
+    head multiplies fixed-shape tiles — so row ``i`` does not depend on
+    which other rows share the batch. Padding a bucket and slicing the
+    valid prefix (:func:`infer_batch_masked`) equals the unpadded call.
     """
     device = resolve_device(device)
     be = get_backend(backend)
@@ -541,3 +670,5 @@ def infer_batch_masked(params, thresholds, cfg: SNNConfig, images, n_valid, *,
 
 
 register_backend("queue_pallas", QueueBackend())
+register_backend("queue_ref", QueueBackend(accum="ref"))
+register_backend("queue_sparse", SparseQueueBackend())

@@ -23,7 +23,12 @@ class ModelHandle:
 
     def __init__(self, name: str, params, thresholds, cfg, *,
                  backend: str = "queue_pallas", device=None):
-        engine.get_backend(backend)          # fail fast on unknown names
+        b = engine.get_backend(backend)      # fail fast on unknown names
+        if getattr(b, "host_dispatch", False):
+            raise ValueError(
+                f"backend {backend!r} dispatches on host-side occupancy "
+                "totals, so its plan cannot be AOT-lowered per bucket; "
+                "serve with 'queue_pallas' (same semantics, static plan)")
         self.device = resolve_device(device)
         self.name = name
         self.params, self.thresholds = engine.to_device(params, thresholds,

@@ -205,3 +205,24 @@ def test_quant_head_differs_from_reference_fma_by_at_most_one_ulp():
     diff = np.abs(lt - lj)
     assert diff.max() > 0                       # the divergence is real here
     assert diff.max() <= np.spacing(np.abs(lj).max())
+
+
+def test_fp32_head_rows_independent_of_batch():
+    """The fp32 head multiplies fixed 256-row tiles, so row i's logits are
+    the same bits whether it comes in a batch of 1, 33 or 64 (Gaussian
+    weights at the CIFAR-10 head's shape, F=1152, N=10, T=4)."""
+    rng = np.random.default_rng(12)
+    raster = torch.from_numpy(
+        (rng.random((64, 4, 3, 3, 128)) < 0.3).astype(np.float32))
+    params_out = {"w": torch.from_numpy(
+                      rng.normal(size=(1152, 10)).astype(np.float32)),
+                  "b": torch.from_numpy(
+                      rng.normal(size=10).astype(np.float32))}
+    full, _ = tengine._output_layer_batch(params_out, 4, raster)
+    for B in (1, 33):
+        part, _ = tengine._output_layer_batch(params_out, 4, raster[:B])
+        assert torch.equal(part, full[:B]), B
+    # the same product per time step, then the sum over T
+    want = (raster.reshape(64, 4, -1) @ params_out["w"]).sum(1) \
+        + params_out["b"] * 4
+    torch.testing.assert_close(full, want, atol=1e-4, rtol=1e-5)

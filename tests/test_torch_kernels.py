@@ -117,9 +117,13 @@ def test_cpu_dispatch_never_counts_launches():
     fmt, occ, w = _occ_weights(9, 1, 8, 16, dyadic=True)
     tops.fused_spike_accum(torch.from_numpy(occ), torch.from_numpy(w),
                            bits=fmt.bits_coord, **_b1_kw(fmt, 9, 16))
+    tops.fused_spike_accum(torch.from_numpy(occ), torch.from_numpy(w),
+                           bits=fmt.bits_coord, impl="sparse", e_cap=64,
+                           weight_bits=8, **_b1_kw(fmt, 9, 16))
     a = torch.ones((4, 8), dtype=torch.int8)
     tops.quant_matmul(a, a.T.contiguous(), torch.tensor(1.0), torch.tensor(1.0))
-    assert tops.launch_counts == {"fused_spike_accum": 0, "quant_matmul": 0}
+    assert tops.launch_counts == {"fused_spike_accum": 0, "quant_matmul": 0,
+                                  "fused_spike_accum_sparse": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

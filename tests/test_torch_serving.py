@@ -57,7 +57,8 @@ def test_serve_runtime_matches_reference(weight_bits):
     tops.reset_launch_counts()
     jresp, _ = _serve(jserve, jreg, imgs)
     tresp, trt = _serve(tserve, treg, imgs)
-    assert tops.launch_counts == {"fused_spike_accum": 0, "quant_matmul": 0}
+    assert tops.launch_counts == {"fused_spike_accum": 0, "quant_matmul": 0,
+                                  "fused_spike_accum_sparse": 0}
 
     assert len(tresp) == len(jresp) == len(imgs)
     for t, j in zip(tresp, jresp):
