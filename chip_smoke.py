@@ -46,7 +46,27 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    ``PROFILE_WINDOWS`` windows of 5 bucket-64 calls each of
    ``queue_sparse`` and ``queue_pallas`` in turns: wall, device busy and
    idle share per window.
-6. profile — bucket-64 executions per serving handle, in
+6. word    — the word-level ``queue`` path and the ``dense`` backends on the
+   full-width net at bucket 64. B5 (queue encoder) on every event-driven
+   stage's real occupancy rows, analog and binary input, bit-exact against
+   its plain version; B4 (event accumulate) on each stage's real queues at
+   every step, dyadic weights bit-exact and Gaussian ones to 1e-4; B6 (MoE
+   row gather) at ``benchmarks/kernel_bench.py``'s shape and the test
+   shapes, f32 and bf16, bit-exact; each timed beside its plain version, a
+   library call where one exists, and its bound. Then
+   ``engine.infer_batch(..., backend="queue")`` on the Gaussian and the
+   dyadic net, fp32 and ``weight_bits=8``, analog input, and binary input
+   once, with the counters zeroed just before and read just after: B5 must
+   launch 6 times and B4 24 times per analog call (7 and 28 per binary
+   call), B1 and B3 never, B2 once per w8 call. Held: dyadic stats and
+   logits equal ``queue_pallas``'s (reported, not held, on the Gaussian
+   net: the two add in another order); padded (n = 33 of 64) == unpadded;
+   per-sample ``engine.infer`` on 3 images == those rows of the batch.
+   ``dense`` and ``dense_unrolled``: stats equal the port's CPU run on a
+   small input, padded == unpadded, ``infer`` == the batch rows. Then
+   ``PROFILE_WINDOWS`` windows of 5 bucket-64 calls each of ``queue`` and
+   ``dense`` in turns.
+7. profile — bucket-64 executions per serving handle, in
    ``PROFILE_WINDOWS`` windows: each window's wall time and device time by
    kernel (torch.profiler) come from the same calls, so the device's idle
    share is read within one window; the spread across windows is printed.
@@ -89,7 +109,12 @@ KERNEL_NAMES = {
     "quant_matmul": ("quant_matmul_kernel",),
     "fused_spike_accum_sparse": ("sparse_gate_kernel", "sparse_rows_kernel",
                                  "sparse_accum_kernel"),
+    "event_accum": ("event_accum_kernel",),
+    "spike_compact": ("spike_compact_kernel",),
+    "moe_gather": ("moe_gather_kernel",),
 }
+MOE_SHAPES = ((1024, 128, 512),                 # benchmarks/kernel_bench.py
+              (16, 8, 12), (64, 32, 50), (10, 128, 40))   # tests/test_kernels.py
 
 
 class SmokeError(RuntimeError):
@@ -120,6 +145,29 @@ def time_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, names, reps=20):
+    """Mean device time per call of the kernels whose names contain one of
+    ``names``, over ``reps`` calls of ``fn`` (torch.profiler): the kernel
+    alone, without the host's launch cost, which the CUDA-event time of a
+    short kernel includes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(n in e.key for n in names))
+    check(total > 0, f"the profiler saw no kernel named {names}")
+    return total / 1e3 / reps
 
 
 def bound(nbytes, ops, ops_per_s):
@@ -649,11 +697,12 @@ def phase_serve(params, device, kind):
     for name, h in dyh.items():
         small = imgs_dy[:3].astype(np.float32)
         lg, sg = engine.infer_batch(h.params, h.thresholds, h.cfg, small,
-                                    device=device)
+                                    backend="queue_pallas", device=device)
         lc, sc = engine.infer_batch([{k: v.cpu() for k, v in p.items()}
                                      for p in h.params],
                                     [t.cpu() for t in h.thresholds], h.cfg,
-                                    small, device="cpu")
+                                    small, backend="queue_pallas",
+                                    device="cpu")
         same = torch.equal(lg.cpu(), lc) and _stats_equal(
             [s.cpu() for s in sg], sc)
         check(same, f"{name}: GPU kernels disagree with the CPU plain run "
@@ -820,6 +869,340 @@ def phase_sparse(params, ths, cfg, images, device, kind):
                 profile=summary)
 
 
+def accum_library(words, counts, w, vm, cp):
+    """The library yardstick of B4: the live slots scattered into a dense
+    (N, C, H, W) spike map, one cuDNN conv, plus v_mem. A live slot's
+    position is unique in its (n, c) map, so a plain indexed store does;
+    dead slots all write into one spare element (no host sync)."""
+    import torch
+    import torch.nn.functional as F
+
+    fmt, K = cp.fmt, cp.kernel
+    N, C, K2, D = words.shape
+    dev = words.device
+    mask = (1 << fmt.bits_coord) - 1
+    i_c = (words >> fmt.bits_coord) & mask
+    live = (i_c < fmt.n_win) & (torch.arange(D, device=dev)
+                                < counts[..., None])
+    ph = torch.arange(K2, device=dev)[:, None]
+    side = fmt.n_win * K
+    y = i_c * K + ph // K
+    x = (words & mask) * K + ph % K
+    nc = torch.arange(N * C, device=dev).reshape(N, C, 1, 1)
+    size = N * C * side * side
+    m = torch.zeros(size + 1, device=dev)
+    m[torch.where(live, (nc * side + y) * side + x, size).flatten()] = 1.0
+    m = m[:size].reshape(N, C, side, side)[:, :, :cp.in_hw, :cp.in_hw]
+    cur = F.conv2d(m, w.permute(3, 2, 0, 1), padding=K // 2)
+    return vm + cur.permute(0, 2, 3, 1)
+
+
+def phase_word_kernels(stages, device):
+    """B5 and B4 on every event-driven stage's real activity at bucket 64
+    (T=4, depth 64): B5 over the stage's B*T*C*K2 occupancy rows, B4 on the
+    resulting queues at each of the T steps, both held against their plain
+    versions and timed."""
+    import torch
+
+    from repro_torch.kernels import event_accum as ea
+    from repro_torch.kernels import spike_compact as sc
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    b5_rows, b4_rows, b4_err = [], [], 0.0
+    for name, cp, occ, w_gauss in stages:
+        fmt = cp.fmt
+        N, C, K2, P = occ.shape
+        rows = occ.reshape(-1, P)
+        kw5 = dict(n_win=fmt.n_win, bits=fmt.bits_coord, depth=DEPTH,
+                   invalid=fmt.invalid_word)
+
+        def compact(rows=rows, kw5=kw5):
+            return sc.spike_compact_cuda(rows, **kw5)
+
+        def compact_plain(rows=rows, kw5=kw5):
+            return sc.spike_compact_plain(rows, **kw5)
+
+        (words, total), (w_p, t_p) = compact(), compact_plain()
+        torch.cuda.synchronize()
+        check(torch.equal(words, w_p) and torch.equal(total, t_p),
+              f"B5 {name}: words or counts differ from the plain version")
+        R = rows.shape[0]
+        nbytes5 = 4 * (R * P + R * DEPTH + R)
+        b_ms, b_by = bound(nbytes5, R * P, INT32_OP_PER_S)
+        row5 = dict(stage=name, R=R, P=P, depth=DEPTH,
+                    events=int(total.sum()),
+                    overflow=int(torch.clamp(total - DEPTH, min=0).sum()),
+                    bytes=nbytes5, ms=time_ms(compact),
+                    device_ms=device_ms(compact, KERNEL_NAMES["spike_compact"]),
+                    plain_ms=time_ms(compact_plain), library_ms=None,
+                    bound_ms=b_ms, bound_by=b_by)
+        b5_rows.append(row5)
+        log(f"[word] B5 {name:21s} R={R} P={P} depth={DEPTH} events="
+            f"{row5['events']} overflow={row5['overflow']} | ms "
+            f"{row5['ms']:.4f} (device {row5['device_ms']:.4f}) plain "
+            f"{row5['plain_ms']:.4f} library none "
+            f"(no single PyTorch call compacts) bound {b_ms:.4f} ({b_by}) | "
+            "bit-exact")
+
+        # B4 on the stage's queues, one launch per step over the B rows
+        B = N // T
+        words = words.reshape(B, T, C, K2, DEPTH)
+        counts = torch.clamp(total, max=DEPTH).reshape(B, T, C, K2)
+        w_dy = (torch.randint(-96, 97, tuple(w_gauss.shape), generator=gen)
+                / 256.0).to(device)
+        vm_g = torch.randn((B, cp.in_hw, cp.in_hw, cp.out_c),
+                           generator=gen).to(device)
+        vm_dy = torch.round(vm_g * 16) / 16
+        kw4 = dict(K=cp.kernel, n_win=fmt.n_win, bits=fmt.bits_coord)
+        for t in range(T):
+            wt, ct = words[:, t], counts[:, t]
+
+            def accum(w=w_gauss, vm=vm_g, wt=wt, ct=ct, kw4=kw4):
+                return ea.event_accum_cuda(wt, ct, w, vm, **kw4)
+
+            def accum_plain(w=w_gauss, vm=vm_g, wt=wt, ct=ct, kw4=kw4):
+                return ea.event_accum_plain(wt, ct, w, vm, **kw4)
+
+            def library(wt=wt, ct=ct, cp=cp):
+                return accum_library(wt, ct, w_gauss, vm_g, cp)
+
+            got, want = accum(), accum_plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
+                  f"B4 {name} t={t}: Gaussian max |err| {err}")
+            lib_err = float((library() - want).abs().max())
+            check(lib_err <= 1e-3, f"B4 {name} t={t}: the library yardstick "
+                  f"computes another function (max |err| {lib_err})")
+            got_dy = accum(w_dy, vm_dy)
+            want_dy = accum_plain(w_dy, vm_dy)
+            check(torch.equal(got_dy, want_dy),
+                  f"B4 {name} t={t}: dyadic weights not bit-exact (max |err| "
+                  f"{float((got_dy - want_dy).abs().max())})")
+            b4_err = max(b4_err, err)
+            live = int(ct.sum())
+            adds = stage_work(occ.reshape(B, T, C, K2, P)[:, t], cp, DEPTH,
+                              w_gauss, device)[1]
+            nbytes4 = (4 * live + ct.numel() * 4 + w_gauss.numel() * 4
+                       + 2 * vm_g.numel() * 4)
+            b_ms, b_by = bound(nbytes4, adds, FP32_FLOP_PER_S)
+            row4 = dict(stage=name, t=t, N=B, C_in=C, hw=cp.in_hw,
+                        C_out=cp.out_c, events=live, adds=adds,
+                        bytes=nbytes4, max_abs_err=err, ms=time_ms(accum),
+                        device_ms=device_ms(accum,
+                                            KERNEL_NAMES["event_accum"]),
+                        plain_ms=time_ms(accum_plain),
+                        library_ms=time_ms(library), bound_ms=b_ms,
+                        bound_by=b_by)
+            b4_rows.append(row4)
+        per = [r for r in b4_rows if r["stage"] == name]
+        log(f"[word] B4 {name:21s} N={B} C_in={C} hw={cp.in_hw} C_out="
+            f"{cp.out_c} events/step {[r['events'] for r in per]} | ms "
+            f"{sum(r['ms'] for r in per):.4f} over {T} steps (device "
+            f"{sum(r['device_ms'] for r in per):.4f}), plain "
+            f"{sum(r['plain_ms'] for r in per):.4f}, library "
+            f"{sum(r['library_ms'] for r in per):.4f}, bound "
+            f"{sum(r['bound_ms'] for r in per):.4f} | max|err| "
+            f"{max(r['max_abs_err'] for r in per):.3g}, dyadic bit-exact")
+    return b5_rows, b4_rows, b4_err
+
+
+def phase_moe(device):
+    """B6 at kernel_bench's shape and the test shapes, f32 and bf16, held
+    bit-exactly against its plain version and the oracle; timed beside
+    ``torch.index_select`` on x with one zero row appended. Its launches
+    come from a window of its own: the one call kernel_bench makes."""
+    import torch
+
+    from repro_torch.kernels import moe_gather as mg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rows = []
+    for (t, d, s) in MOE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((t, d), generator=gen).to(dtype).to(device)
+            idx = torch.randint(-1, t, (s,), generator=gen,
+                                dtype=torch.int32).to(device)
+            if (t, d, s) == MOE_SHAPES[0] and dtype == torch.float32:
+                ops.reset_launch_counts()          # kernel_bench's one call
+                got = ops.moe_gather(x, idx)
+                launches = ops.launch_counts["moe_gather"]
+            else:
+                got = mg.moe_gather_cuda(x, idx)
+            torch.cuda.synchronize()
+            check(torch.equal(got, mg.moe_gather_plain(x, idx))
+                  and torch.equal(got, ref.moe_gather_ref(x, idx)),
+                  f"B6 ({t}, {d}, {s}) {dtype}: not bit-exact")
+            x_pad = torch.cat([x, x.new_zeros((1, d))])
+            idx_pad = torch.where(idx < 0, t, idx)
+
+            def library(x_pad=x_pad, idx_pad=idx_pad):
+                return torch.index_select(x_pad, 0, idx_pad)
+
+            check(torch.equal(library(), got),
+                  f"B6 ({t}, {d}, {s}): index_select differs")
+            esize = x.element_size()
+            used = int(torch.unique(idx[idx >= 0]).numel())
+            nbytes = used * d * esize + s * d * esize + s * 4
+            b_ms, b_by = bound(nbytes, 0, FP32_FLOP_PER_S)
+            rows.append(dict(
+                T=t, d=d, S=s, dtype=str(dtype).split(".")[-1],
+                bytes=nbytes, max_abs_err=0.0,
+                ms=time_ms(lambda: mg.moe_gather_cuda(x, idx)),
+                device_ms=device_ms(lambda: mg.moe_gather_cuda(x, idx),
+                                    KERNEL_NAMES["moe_gather"]),
+                plain_ms=time_ms(lambda: mg.moe_gather_plain(x, idx)),
+                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by))
+            r = rows[-1]
+            log(f"[word] B6 T={t} d={d} S={s} {r['dtype']} | ms "
+                f"{r['ms']:.4f} (device {r['device_ms']:.4f}) plain "
+                f"{r['plain_ms']:.4f} library "
+                f"{r['library_ms']:.4f} (index_select on x with a zero row "
+                f"appended) bound {b_ms:.6f} ({b_by}) | bit-exact")
+    log(f"[word] B6 launches in its window (kernel_bench's call): "
+        f"{launches}")
+    check(launches == 1, f"B6 launched {launches} times for one call")
+    return rows, launches
+
+
+def phase_word(params, ths, cfg, images, device, kind):
+    """The word-level queue path and the dense backends at bucket 64:
+    launches in the queue window, parity with queue_pallas, the mask
+    contract, per-sample infer, dense against the CPU run, and profiled
+    windows of queue and dense."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+
+    dy = dyadic_params(params, device)
+    imgs_dy = torch.round(images * 256) / 256
+    cfg_w8 = cfg._replace(weight_bits=8)
+    runs = {  # name -> (params, config, images)
+        "gauss-fp32": (params, cfg, images),
+        "gauss-w8": (params, cfg_w8, images),
+        "dyadic-fp32": (dy, cfg, imgs_dy),
+        "dyadic-w8": (dy, cfg_w8, imgs_dy),
+        "dyadic-fp32-binary": (dy, cfg._replace(input_mode="binary"),
+                               imgs_dy),
+    }
+
+    def infer(name, backend, imgs=None, **kw):
+        p, c, im = runs[name]
+        return engine.infer_batch(p, ths, c, im if imgs is None else imgs,
+                                  backend=backend, device=device, **kw)
+
+    ops.reset_launch_counts()                      # the main-path window
+    out = {name: infer(name, "queue") for name in runs}
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)             # read right after
+    log(f"[word] launches in the queue window ({len(runs)} calls): "
+        f"{launches}")
+    check(launches["spike_compact"] == 6 * 4 + 7,
+          f"B5 launched {launches['spike_compact']} times (expected 6 per "
+          "analog call, 7 per binary call: 31)")
+    check(launches["event_accum"] == 24 * 4 + 28,
+          f"B4 launched {launches['event_accum']} times (expected 24 per "
+          "analog call, 28 per binary call: 124)")
+    check(launches["fused_spike_accum"] == 0
+          and launches["fused_spike_accum_sparse"] == 0,
+          "B1 or B3 ran on the queue path")
+    check(launches["quant_matmul"] == 2,
+          f"B2 launched {launches['quant_matmul']} times (expected once per "
+          "w8 call: 2)")
+
+    parity = {}
+    for name, (lg, st) in out.items():
+        check(lg.shape == (images.shape[0], 10)
+              and bool(torch.isfinite(lg).all()),
+              f"{name}: logits not finite or of shape {tuple(lg.shape)}")
+        la, sa = infer(name, "queue_pallas")
+        same = torch.equal(lg, la) and _stats_equal(st, sa)
+        parity[name] = dict(
+            bit_exact=same, max_abs_logit_diff=float((lg - la).abs().max()),
+            stats_differing=[f for f, x, y in zip(st._fields, st, sa)
+                             if not torch.equal(x, y)])
+        if name.startswith("dyadic"):
+            check(same, f"queue {name} differs from queue_pallas: "
+                  f"{parity[name]}")
+    for k, v in parity.items():
+        log(f"[word] queue vs queue_pallas {k}: " + (
+            "bit-exact" if v["bit_exact"] else
+            f"max |logit diff| {v['max_abs_logit_diff']:.3g}, stats that "
+            f"differ {v['stats_differing']} (reported, not held: queue adds "
+            "the events into the membrane and then the bias, queue_pallas "
+            "adds one current)"))
+
+    n = images.shape[0] // 2 + 1                   # 33 of 64
+    mask, rows_ok, cpu_ok = {}, {}, {}
+    for be in ("queue", "dense", "dense_unrolled"):
+        for name in ("gauss-fp32", "gauss-w8", "dyadic-fp32"):
+            p, c, im = runs[name]
+            lp, sp_ = engine.infer_batch_masked(p, ths, c, im, n, backend=be,
+                                                device=device)
+            lu, su = infer(name, be, im[:n])
+            same = torch.equal(lp, lu) and _stats_equal(sp_, su)
+            mask[f"{be} {name}"] = same
+            check(same, f"{be} mask contract broken on {name}: max |logit "
+                  f"diff| {float((lp - lu).abs().max())}")
+            for i in range(3):                     # per-sample infer
+                l1, s1 = engine.infer(p, ths, c, im[i], backend=be,
+                                      device=device)
+                check(torch.equal(l1, lu[i])
+                      and all(torch.equal(a, b[i]) for a, b in zip(s1, su)),
+                      f"{be} {name}: infer on image {i} differs from its "
+                      "row of infer_batch")
+            rows_ok[f"{be} {name}"] = True
+        # card == CPU: Gaussian nets only where the card adds in the CPU's
+        # order (the cuDNN conv); B4 adds in (c, phase) order, the plain
+        # version offset by offset, so a spike at the threshold could flip
+        held = ("dyadic-fp32", "dyadic-fp32-binary") + (
+            ("gauss-fp32",) if be != "queue" else ())
+        for name in held:
+            p, c, im = runs[name]
+            small = im[:3]
+            lg, sg = infer(name, be, small)
+            lc, sc = engine.infer_batch(
+                [{k: v.cpu() for k, v in layer.items()} for layer in p],
+                [t.cpu() for t in ths], c, small.cpu(), backend=be,
+                device="cpu")
+            stats_same = _stats_equal([a.cpu() for a in sg], sc)
+            diff = float((lg.cpu() - lc).abs().max())
+            cpu_ok[f"{be} {name}"] = dict(stats_equal=stats_same,
+                                          max_abs_logit_diff=diff)
+            check(stats_same, f"{be} {name}: card stats differ from the CPU "
+                  "run")
+            if name.startswith("dyadic"):
+                check(diff == 0.0, f"{be} {name}: card logits differ from the "
+                      f"CPU run by {diff}")
+    log(f"[word] padded (n={n} of {images.shape[0]}) == unpadded: {mask}")
+    log(f"[word] infer on 3 images == the batch rows: {rows_ok}")
+    log(f"[word] card == CPU run on 3 images (stats held; logits held on "
+        f"the dyadic nets): {cpu_ok}")
+
+    def call(name, backend):
+        def run():
+            infer(name, backend)
+            torch.cuda.synchronize()
+        return run
+
+    windows = {}
+    calls = {be: call("gauss-fp32", be) for be in ("queue", "dense")}
+    for be in calls:
+        calls[be]()                                # warm
+    for i in range(PROFILE_WINDOWS):               # in turns
+        order = list(calls) if i % 2 == 0 else list(calls)[::-1]
+        for be in order:
+            windows.setdefault(f"gauss-fp32 {be}", []).append(
+                profile_window(calls[be]))
+    summary = {k: dict(windows=w, **log_windows("word", k, w, kind))
+               for k, w in windows.items()}
+    return dict(launches=launches, parity=parity, mask_contract=mask,
+                infer_rows=rows_ok, card_vs_cpu=cpu_ok, profile=summary)
+
+
 def phase_profile(params, ths, cfg, images, kind):
     """Where a bucket-64 execution's time goes, for an fp32 and a
     ``weight_bits=8`` serving handle, in ``PROFILE_WINDOWS`` windows of 5
@@ -869,6 +1252,9 @@ def main() -> int:
     b3, b3_err = phase_b3(stages, device)
     serve, launches, mask = phase_serve(params, device, kind)
     sparse = phase_sparse(params, th, cfg, imgs, device, kind)
+    b5, b4, b4_err = phase_word_kernels(stages, device)
+    b6, b6_launches = phase_moe(device)
+    word = phase_word(params, th, cfg, imgs, device, kind)
     profile = phase_profile(params, th, cfg, imgs, kind)
 
     # per-kernel summary at the serve shapes: one bucket-64 execution,
@@ -878,7 +1264,17 @@ def main() -> int:
         return [r for r in rows if r["depth"] == DEPTH
                 and not r["stage"].startswith("conv0")]
 
+    def analog_path(rows):
+        return [r for r in rows if not r["stage"].startswith("conv0")]
+
     b1_path, b3_path = path(b1), path(b3)
+    b4_path, b5_path = analog_path(b4), analog_path(b5)
+    b4_bound, b4_by = bound(sum(r["bytes"] for r in b4_path),
+                            sum(r["adds"] for r in b4_path), FP32_FLOP_PER_S)
+    b5_bound, b5_by = bound(sum(r["bytes"] for r in b5_path),
+                            sum(r["R"] * r["P"] for r in b5_path),
+                            INT32_OP_PER_S)
+    b6_main = b6[0]                     # kernel_bench's shape, float32
     b1_bound, b1_by = bound(sum(r["bytes"] for r in b1_path),
                             sum(r["adds"] for r in b1_path), FP32_FLOP_PER_S)
     b3_bound, b3_by = bound(sum(r["bytes"] for r in b3_path),
@@ -908,17 +1304,43 @@ def main() -> int:
              plain_ms=sum(r["plain_ms"] for r in b3_path),
              bound_ms=b3_bound, bound_by=b3_by,
              library_ms=sum(r["library_ms"] for r in b3_path)),
+        dict(name="event_accum", route="cuda",
+             source="src/repro_torch/csrc/event_accum.cu",
+             replaces="src/repro/kernels/event_accum.py:99",
+             launches=word["launches"]["event_accum"], max_abs_err=b4_err,
+             ms=sum(r["ms"] for r in b4_path),
+             plain_ms=sum(r["plain_ms"] for r in b4_path),
+             bound_ms=b4_bound, bound_by=b4_by,
+             library_ms=sum(r["library_ms"] for r in b4_path)),
+        dict(name="spike_compact", route="cuda",
+             source="src/repro_torch/csrc/spike_compact.cu",
+             replaces="src/repro/kernels/spike_compact.py:42",
+             launches=word["launches"]["spike_compact"], max_abs_err=0.0,
+             ms=sum(r["ms"] for r in b5_path),
+             plain_ms=sum(r["plain_ms"] for r in b5_path),
+             bound_ms=b5_bound, bound_by=b5_by, library_ms=None),
+        dict(name="moe_gather", route="cuda",
+             source="src/repro_torch/csrc/moe_gather.cu",
+             replaces="src/repro/kernels/moe_gather.py:33",
+             launches=b6_launches, max_abs_err=0.0, ms=b6_main["ms"],
+             plain_ms=b6_main["plain_ms"], bound_ms=b6_main["bound_ms"],
+             bound_by=b6_main["bound_by"], library_ms=b6_main["library_ms"]),
     ]
-    windows = ("serve", "serve", "queue_sparse")
+    windows = ("serve", "serve", "queue_sparse", "queue", "queue",
+               "kernel_bench call")
     for k, window in zip(kernels, windows):
-        log(f"[summary] {k['name']}: {k['ms']:.4f} ms per bucket-64 "
-            f"execution (plain {k['plain_ms']:.4f}, library "
-            f"{k['library_ms']:.4f}, bound {k['bound_ms']:.6f} "
-            f"{k['bound_by']}), {k['launches']} launches in the {window} "
-            "window")
+        lib = ("none" if k["library_ms"] is None
+               else f"{k['library_ms']:.4f}")
+        unit = ("per call at kernel_bench's shape" if k["name"] == "moe_gather"
+                else "per bucket-64 execution")
+        log(f"[summary] {k['name']}: {k['ms']:.4f} ms {unit} "
+            f"(plain {k['plain_ms']:.4f}, library {lib}, bound "
+            f"{k['bound_ms']:.6f} {k['bound_by']}), {k['launches']} launches "
+            f"in the {window} window")
     details = dict(device=kind, nvidia_smi=smi_line, build=build,
-                   b1=b1, b2=b2, b3=b3, serve=serve, mask_contract=mask,
-                   sparse=sparse, kernels=kernels, profile=profile,
+                   b1=b1, b2=b2, b3=b3, b4=b4, b5=b5, b6=b6, serve=serve,
+                   mask_contract=mask, sparse=sparse, word=word,
+                   kernels=kernels, profile=profile,
                    seconds=time.perf_counter() - t_all)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,18 +1,130 @@
-"""Batched AEQ segment views: the fused spike pipeline's queue-boundary helpers.
+"""Address-Event Queues with kernel-phase memory interlacing (paper Figs. 3-5).
 
-Port of the batched half of ``repro.core.aeq`` (``phase_occupancy``,
-``segment_keep``, ``span_map``). The paper's AEQ is a set of K*K queues, one
-per kernel *phase*: a spike at (y, x) lands in phase (y mod K)*K + (x mod K)
-as window address (y // K, x // K). Two events of one phase always have
-disjoint K x K footprints, which is what lets the CUDA kernel apply a whole
-queue at once without atomics (``csrc/spike_pipeline.cu``).
+Port of ``repro.core.aeq``. The paper's AEQ is a set of K*K queues, one per
+kernel *phase*: a spike at (y, x) lands in phase (y mod K)*K + (x mod K) as
+window address (y // K, x // K). Two events of one phase always have
+disjoint K x K footprints, which is what lets the CUDA kernels apply a
+whole queue at once without atomics (``csrc/spike_pipeline.cu``,
+``csrc/event_accum.cu``).
+
+Word-level half: :class:`AEQ` holds the packed words of every (step,
+channel, phase) queue at a fixed ``depth`` (events past it are dropped and
+counted); :func:`compact_spikes` is the software model of the Thresholding
+Unit's event encoder — on a CUDA tensor its compaction is the queue-encoder
+kernel (``csrc/spike_compact.cu``). Batched half: the fused pipeline's
+queue-boundary helpers (``phase_occupancy``, ``segment_keep``,
+``span_map``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from .encoding import AEFormat
+from .encoding import AEFormat, unpack_events
+
+
+class AEQ(NamedTuple):
+    words: torch.Tensor     # (..., T, C, K2, depth) int32 packed AE words
+    counts: torch.Tensor    # (..., T, C, K2) int32 events per segment/phase
+    overflow: torch.Tensor  # (...) int32 dropped events (capacity misses)
+
+
+def aeq_init(fmt: AEFormat, T: int, C: int, depth: int, device=None) -> AEQ:
+    K2 = fmt.kernel * fmt.kernel
+    return AEQ(
+        words=torch.full((T, C, K2, depth), fmt.invalid_word,
+                         dtype=torch.int32, device=device),
+        counts=torch.zeros((T, C, K2), dtype=torch.int32, device=device),
+        overflow=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _phase_split(fmt: AEFormat, spike_map: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) maps -> (..., K2, n_win*n_win) per-phase window occupancy.
+
+    Pads each map up to n_win*K on both axes (padding holds no spikes).
+    """
+    K, n = fmt.kernel, fmt.n_win
+    *lead, H, W = spike_map.shape
+    m = F.pad(spike_map, (0, n * K - W, 0, n * K - H))
+    # (..., n, K, n, K) -> (..., K, K, n, n) -> (..., K2, n*n)
+    m = m.reshape(*lead, n, K, n, K).movedim((-3, -1), (-4, -3))
+    return m.reshape(*lead, K * K, n * n)
+
+
+def compact_spikes(fmt: AEFormat, spike_map: torch.Tensor, depth: int):
+    """(..., H, W) 0/1 spike maps -> per-phase packed queues.
+
+    Returns (words (..., K2, depth), counts (..., K2) capped at ``depth``,
+    dropped (...) per map): the software model of the Thresholding Unit's
+    event encoder. Events append in window-row-major order, as the
+    hardware's sequential queue append does. The compaction itself is
+    ``kernels.ops.spike_compact`` over all the maps' phase rows at once —
+    the CUDA kernel on a CUDA tensor, the cumsum-and-scatter plain version
+    on the CPU.
+    """
+    from ..kernels import ops
+
+    occ = _phase_split(fmt, spike_map)
+    *lead, K2, P = occ.shape
+    words, total = ops.spike_compact(
+        occ.reshape(-1, P).to(torch.int32).contiguous(), n_win=fmt.n_win,
+        bits=fmt.bits_coord, depth=depth, invalid=fmt.invalid_word)
+    total = total.reshape(*lead, K2)
+    dropped = torch.clamp(total - depth, min=0).sum(-1).to(torch.int32)
+    return (words.reshape(*lead, K2, depth), torch.clamp(total, max=depth),
+            dropped)
+
+
+def _scatter_rows(words, target, packed):
+    """Row-wise scatter ``words[k, target[k, p]] = packed[k, p]``; targets
+    equal to ``depth`` are dropped (they land in a spare column)."""
+    R, depth = words.shape
+    flat = torch.cat([words, words.new_empty((R, 1))], dim=1)
+    flat.scatter_(1, target, packed)
+    return flat[:, :depth].contiguous()
+
+
+def aeq_set_segment(aeq: AEQ, fmt: AEFormat, t: int,
+                    spikes_chw: torch.Tensor) -> AEQ:
+    """Write the events of time step ``t`` (all C channels) into the queue."""
+    depth = aeq.words.shape[-1]
+    words, counts, dropped = compact_spikes(fmt, spikes_chw, depth)
+    new_words, new_counts = aeq.words.clone(), aeq.counts.clone()
+    new_words[t], new_counts[t] = words, counts
+    return AEQ(new_words, new_counts, aeq.overflow + dropped.sum())
+
+
+def aeq_from_raster(fmt: AEFormat, raster: torch.Tensor, depth: int) -> AEQ:
+    """(T, C, H, W) 0/1 raster -> fully populated AEQ (one compaction over
+    all T * C maps)."""
+    words, counts, dropped = compact_spikes(fmt, raster, depth)
+    return AEQ(words, counts, dropped.sum().to(torch.int32))
+
+
+def aeq_from_raster_batch(fmt: AEFormat, raster: torch.Tensor,
+                          depth: int) -> AEQ:
+    """(B, T, C, H, W) 0/1 raster -> AEQ with a leading batch axis per
+    field (overflow (B,)); one compaction over all B * T * C maps."""
+    words, counts, dropped = compact_spikes(fmt, raster, depth)
+    return AEQ(words, counts, dropped.flatten(1).sum(1).to(torch.int32))
+
+
+def decode_positions(fmt: AEFormat, words: torch.Tensor):
+    """(..., K2, depth) packed words -> absolute (y, x, valid) positions.
+
+    y = i_c * K + ky with phase ph = ky*K + kx implicit in the second-to-last
+    axis index (the compressed encoding's implicit coordinate, Sec. 5.2).
+    """
+    K = fmt.kernel
+    i_c, j_c, valid = unpack_events(fmt, words)
+    ph = torch.arange(K * K, dtype=torch.int32, device=words.device)[:, None]
+    return i_c * K + ph // K, j_c * K + ph % K, valid
+
+
+def aeq_total_events(aeq: AEQ) -> torch.Tensor:
+    return aeq.counts.sum()
 
 
 def phase_occupancy(fmt: AEFormat, raster: torch.Tensor) -> torch.Tensor:
@@ -47,6 +159,15 @@ def segment_keep(occ: torch.Tensor, depth: int) -> torch.Tensor:
     return fired & (slot < depth)
 
 
+def kernel_span(p: torch.Tensor, K: int, size: int) -> torch.Tensor:
+    """Kernel offsets d in [0, K) with 0 <= p - d + K//2 < size: the
+    in-bounds SAME-conv targets of an event at coordinate ``p``."""
+    pad = K // 2
+    lo = torch.clamp(p + pad - size + 1, min=0)
+    hi = torch.clamp(p + pad, max=K - 1)
+    return torch.clamp(hi - lo + 1, min=0)
+
+
 def span_map(fmt: AEFormat, hw: int, device=None) -> torch.Tensor:
     """(K2, P) int32 map: in-bounds kernel offsets per (phase, window) slot.
 
@@ -54,16 +175,10 @@ def span_map(fmt: AEFormat, hw: int, device=None) -> torch.Tensor:
     (before the C_out fan-out). Padding positions (y or x >= hw) get 0.
     """
     K, n = fmt.kernel, fmt.n_win
-    pad = K // 2
     pos = torch.arange(n * n, dtype=torch.int32, device=device)
     wy, wx = pos // n, pos % n
     ph = torch.arange(K * K, dtype=torch.int32, device=device)[:, None]
     y = wy[None, :] * K + ph // K
     x = wx[None, :] * K + ph % K
-
-    def span(p):  # offsets d in [0, K) with 0 <= p - d + pad < hw
-        lo = torch.clamp(p + pad - hw + 1, min=0)
-        hi = torch.clamp(p + pad, max=K - 1)
-        return torch.clamp(hi - lo + 1, min=0)
-
-    return (span(y) * span(x) * (y < hw) * (x < hw)).to(torch.int32)
+    return (kernel_span(y, K, hw) * kernel_span(x, K, hw) * (y < hw)
+            * (x < hw)).to(torch.int32)

@@ -5,8 +5,19 @@ spec string ("32C3-32C3-P3-...-10") into a hashable :class:`LayerPlan`,
 identical field by field to the reference's.
 
 Dynamic half: :func:`infer_batch` walks the plan over a (B, H, W, C) batch
-through one of three registered backends:
+(:func:`infer` over one (H, W, C) sample) through one of the registered
+backends:
 
+- ``dense`` (:class:`DenseBackend`, the default of ``infer``,
+  ``infer_batch`` and ``infer_batch_masked``, as in the reference): one
+  SAME conv of each stage's whole spike raster, every queue statistic
+  derived from the raster, nothing dropped; ``dense_unrolled`` convolves
+  step by step;
+- ``queue`` (``QueueBackend(accum="word")``): the word-level reference
+  path — each stage's raster becomes packed address-event queues
+  (``aeq.aeq_from_raster_batch``: the queue-encoder kernel on a CUDA
+  tensor), accumulated into the membrane one time step at a time
+  (``snn_layers.event_conv2d``: the event-accumulate kernel);
 - ``queue_pallas`` (:class:`QueueBackend`, the serving default): each
   event-driven conv stage splits the incoming spike raster into per-phase
   window occupancy, derives the integer stats from it, and runs the fused
@@ -40,14 +51,16 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from . import encoding
-from .aeq import phase_occupancy, segment_keep, span_map
+from .aeq import (aeq_from_raster_batch, kernel_span, phase_occupancy,
+                  segment_keep, span_map)
 from .encoding import AEFormat, encode_ttfs
 from .neuron import NeuronModel, get_neuron_model
 from .quantization import quantize_symmetric
-from .snn_layers import conv_same_nhwc, spike_maxpool_hwc
+from .snn_layers import conv_same_nhwc, event_conv2d, spike_maxpool_hwc
 
 
 class SpecError(ValueError):
@@ -303,57 +316,138 @@ def _conv_step(cp: ConvPlan, model: NeuronModel, vth):
     return step
 
 
-def _init_carry_batch(cp: ConvPlan, cfg: SNNConfig, vth, dtype, B: int):
-    """(v, latch[, pool latch]) with a leading batch axis.
+def _init_carry(cp: ConvPlan, cfg: SNNConfig, vth, dtype):
+    """One sample's (v, latch[, pool latch]).
 
     The membrane starts at ``v_init_frac * vth``, computed in fp32 like the
     reference's weakly typed product.
     """
     dev = vth.device
-    v = (cfg.v_init_frac * vth.to(dtype)).expand(B, cp.in_hw, cp.in_hw,
-                                                 cp.out_c)
-    latch = torch.zeros((B, cp.in_hw, cp.in_hw, cp.out_c), dtype=torch.bool,
+    v = (cfg.v_init_frac * vth.to(dtype)).expand(cp.in_hw, cp.in_hw, cp.out_c)
+    latch = torch.zeros((cp.in_hw, cp.in_hw, cp.out_c), dtype=torch.bool,
                         device=dev)
     if cp.pool:
-        p_latch = torch.zeros((B, cp.out_hw, cp.out_hw, cp.out_c),
+        p_latch = torch.zeros((cp.out_hw, cp.out_hw, cp.out_c),
                               dtype=torch.bool, device=dev)
         return (v, latch, p_latch)
     return (v, latch)
+
+
+def _init_carry_batch(cp: ConvPlan, cfg: SNNConfig, vth, dtype, B: int):
+    """The per-sample carry with a leading batch axis (same init values)."""
+    return tuple(a.expand(B, *a.shape)
+                 for a in _init_carry(cp, cfg, vth, dtype))
+
+
+# ---------------------------------------------------------------------------
+# Shared stat helpers of the dense backends
+# ---------------------------------------------------------------------------
+
+def _valid_offsets_map(hw: int, K: int, device=None) -> torch.Tensor:
+    """(hw, hw) int32 map: in-bounds kernel offsets per spike position."""
+    span = kernel_span(torch.arange(hw, dtype=torch.int32, device=device), K,
+                       hw)
+    return span[:, None] * span[None, :]
+
+
+def _segment_occupancy(fmt: AEFormat, raster: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, C) raster -> (..., K, K, C) int32 per-(phase, channel)
+    event counts.
+
+    A spike at (y, x) lands in phase (y mod K)*K + (x mod K), so the segment
+    occupancy is one pad + reshape + sum over the window grid.
+    """
+    K, n = fmt.kernel, fmt.n_win
+    *lead, H, W, C = raster.shape
+    m = F.pad(raster, (0, 0, 0, n * K - W, 0, n * K - H))
+    m = m.reshape(*lead, n, K, n, K, C)
+    return (m > 0).sum((-5, -3), dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # Backends
 # ---------------------------------------------------------------------------
 
-class QueueBackend:
-    """Event-driven conv stages through the fused spike pipeline.
+class DenseBackend:
+    """Dense-dynamics reference: one SAME conv of a stage's spike raster.
 
-    Faithful points (paper Sec. 3.1/4): spike-once latches via the neuron
-    registry, no reset, bias as constant input current each step, pooling
-    fused into emission, segmented fixed-depth queues. The batch axis is
-    native: all B*T queue-segment sets go through one kernel launch.
+    The same mathematics as the queue paths (event-driven accumulation of
+    a spike raster == dense convolution of it), with nothing dropped: every
+    statistic is derived from the rasters — events_in = every spike,
+    add_ops = in-bounds kernel offsets x C_out per spike, queue_words = the
+    uncapped per-(step, phase, channel) segment occupancy, overflow = the
+    occupancy past ``depth`` (counted, not dropped).
 
-    ``accum="kernel"`` (the ``queue_pallas`` backend) runs the fused
-    kernel B1; ``accum="ref"`` (the ``queue_ref`` backend) routes the same
-    plan through the scatter oracles — slow, but the engine-level parity
-    anchor ``queue_sparse`` is pinned against, and, like it, it executes
-    ``cfg.weight_bits`` in the conv stages.
+    ``dense`` convolves all B*T frames at once; ``dense_unrolled``
+    (``unroll=True``) convolves step by step, as the reference's seed
+    interpreter did. Both then run the shared time loop.
     """
 
     supports_batch = True
 
-    def __init__(self, accum: str = "kernel"):
-        if accum not in ("kernel", "ref"):
-            raise ValueError(
-                f"accum must be 'kernel' or 'ref', got {accum!r}")
-        self.accum = accum
-        self.name = {"kernel": "queue_pallas", "ref": "queue_ref"}[accum]
+    def __init__(self, unroll: bool = False):
+        self.unroll = unroll
+        self.name = "dense_unrolled" if unroll else "dense"
 
     def conv_layer_batch(self, cp, w, b, vth, cfg, raster, analog):
         """raster (B, T, H, W, C) 0/1 or analog (B, H, W, C) -> the emitted
         (B, T, H', W', C_out) raster and a per-sample :class:`LayerStats`."""
         if raster is None:
             return _analog_layer(cp, cfg, analog, w, b, vth)
+        B, T, H, W, C = raster.shape
+        occ = _segment_occupancy(cp.fmt, raster)          # (B, T, K, K, C)
+        q_words = occ.sum((1, 2, 3, 4), dtype=torch.int32)
+        ovf = torch.clamp(occ - cfg.depth, min=0).sum((1, 2, 3, 4),
+                                                      dtype=torch.int32)
+        fired = raster > 0
+        ev = fired.sum((1, 2, 3, 4), dtype=torch.int32)
+        per_spike = _valid_offsets_map(cp.in_hw, cp.kernel, raster.device)
+        ops = ((fired * per_spike[:, :, None]).sum((1, 2, 3, 4))
+               * cp.out_c).to(torch.int32)
+        if self.unroll:
+            cur = torch.stack([conv_same_nhwc(raster[:, t], w)
+                               for t in range(T)], dim=1)
+        else:
+            cur = conv_same_nhwc(raster.reshape(B * T, H, W, C), w)
+            cur = cur.reshape(B, T, *cur.shape[1:])
+        out = _run_steps(cp, cfg, vth, cur + b)
+        return out, LayerStats(ev, out.sum((1, 2, 3, 4)).to(torch.int32),
+                               ops, q_words, ovf)
+
+
+class QueueBackend:
+    """Event-driven conv stages through address-event queues.
+
+    Faithful points (paper Sec. 3.1/4): spike-once latches via the neuron
+    registry, no reset, bias as constant input current each step, pooling
+    fused into emission, segmented fixed-depth queues. The batch axis is
+    native: every kernel launch covers all B samples.
+
+    ``accum="kernel"`` (the ``queue_pallas`` backend) runs the fused
+    kernel B1; ``accum="ref"`` (the ``queue_ref`` backend) routes the same
+    plan through the scatter oracles — slow, but the engine-level parity
+    anchor ``queue_sparse`` is pinned against, and, like it, it executes
+    ``cfg.weight_bits`` in the conv stages. ``accum="word"`` (the ``queue``
+    backend) is the word-level reference path (:func:`_word_layer`).
+    """
+
+    supports_batch = True
+
+    def __init__(self, accum: str = "kernel"):
+        if accum not in ("kernel", "ref", "word"):
+            raise ValueError(
+                f"accum must be 'kernel', 'ref' or 'word', got {accum!r}")
+        self.accum = accum
+        self.name = {"kernel": "queue_pallas", "ref": "queue_ref",
+                     "word": "queue"}[accum]
+
+    def conv_layer_batch(self, cp, w, b, vth, cfg, raster, analog):
+        """raster (B, T, H, W, C) 0/1 or analog (B, H, W, C) -> the emitted
+        (B, T, H', W', C_out) raster and a per-sample :class:`LayerStats`."""
+        if raster is None:
+            return _analog_layer(cp, cfg, analog, w, b, vth)
+        if self.accum == "word":
+            return _word_layer(cp, cfg, raster, w, b, vth)
         occ, _, _, ev, ovf, ops = _queue_stats(cp, cfg.depth, raster)
         if self.accum == "ref":
             out = _event_layer(cp, cfg, occ, w, b, vth, impl="ref",
@@ -418,6 +512,33 @@ def _event_layer(cp: ConvPlan, cfg: SNNConfig, occ, w, b, vth, **accum):
     return _run_steps(cp, cfg, vth, cur)
 
 
+def _word_layer(cp: ConvPlan, cfg: SNNConfig, raster, w, b, vth):
+    """The word-level queue path of one event-driven stage.
+
+    The (B, T, H, W, C) raster becomes every (sample, step, channel, phase)
+    queue at once (``aeq_from_raster_batch``: one queue-encoder launch on
+    the card); then each step adds its queued events into the carried
+    membrane (``event_conv2d``: one event-accumulate launch over the B
+    samples) and steps the neuron with the bias as the step's current — the
+    reference's order of adds, not ``queue_pallas``'s single ``charge + b``
+    current.
+    """
+    q = aeq_from_raster_batch(cp.fmt, raster.movedim(-1, 2), cfg.depth)
+    ev = q.counts.sum((1, 2, 3), dtype=torch.int32)
+    step = _conv_step(cp, get_neuron_model(cfg.mode), vth)
+    carry = _init_carry_batch(cp, cfg, vth, w.dtype, raster.shape[0])
+    ops = torch.zeros_like(ev)
+    frames = []
+    for t in range(cfg.T):
+        v, n = event_conv2d(carry[0].contiguous(), w, q, cp.fmt, t)
+        carry, sp = step((v, *carry[1:]), b)
+        ops = ops + n
+        frames.append(sp)
+    out = torch.stack(frames, dim=1)
+    return out, LayerStats(ev, out.sum((1, 2, 3, 4)).to(torch.int32), ops,
+                           ev, q.overflow)
+
+
 def _analog_layer(cp: ConvPlan, cfg: SNNConfig, analog, w, b, vth):
     """The analog (constant-current) first layer — no events yet: one dense
     conv, the same current every step. Returns the raster and its stats."""
@@ -476,7 +597,7 @@ class SparseQueueBackend:
         return out, _event_stats(out, ev, ovf, ops)
 
 
-_BACKENDS: dict[str, QueueBackend] = {}
+_BACKENDS: dict[str, object] = {}
 
 
 def register_backend(name: str, backend, *, overwrite: bool = False):
@@ -624,18 +745,18 @@ def to_device(params, thresholds, device):
 
 @torch.inference_mode()
 def infer_batch(params, thresholds, cfg: SNNConfig, images, *,
-                backend: str = "queue_pallas", device=None):
+                backend: str = "dense", device=None):
     """Run a (B, H, W, C) batch; returns ``(logits (B, n_out), SNNStats)``.
 
     Runs on CUDA unless ``device="cpu"`` is passed (see
     ``device.resolve_device``); params and images are moved there.
 
     **Mask contract**: rows are independent — the convs batch over B, the
-    time loop is elementwise per row, the fused and sparse kernels give
-    each row its own blocks with a fixed summation order, and the fp32
-    head multiplies fixed-shape tiles — so row ``i`` does not depend on
-    which other rows share the batch. Padding a bucket and slicing the
-    valid prefix (:func:`infer_batch_masked`) equals the unpadded call.
+    time loop is elementwise per row, the kernels give each row its own
+    blocks with a fixed summation order, and the fp32 head multiplies
+    fixed-shape tiles — so row ``i`` does not depend on which other rows
+    share the batch. Padding a bucket and slicing the valid prefix
+    (:func:`infer_batch_masked`) equals the unpadded call.
     """
     device = resolve_device(device)
     be = get_backend(backend)
@@ -644,6 +765,19 @@ def infer_batch(params, thresholds, cfg: SNNConfig, images, *,
     images = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images)
                              else images, dtype=torch.float32, device=device)
     return _execute_batch(plan, be, cfg, params, thresholds, images)
+
+
+def infer(params, thresholds, cfg: SNNConfig, image, *,
+          backend: str = "dense", device=None):
+    """Run one (H, W, C) sample; returns ``(logits (n_out,), SNNStats)``
+    with per-sample stats ((L,) per field, overflow ()).
+
+    The batch of one through :func:`infer_batch`, its batch axis stripped,
+    so the result equals that sample's row of any batch it is part of.
+    """
+    logits, stats = infer_batch(params, thresholds, cfg, image[None],
+                                backend=backend, device=device)
+    return logits[0], SNNStats(*(a[0] for a in stats))
 
 
 def _check_n_valid(n_valid, B: int) -> None:
@@ -661,7 +795,7 @@ def slice_valid(logits, stats, n_valid: int):
 
 
 def infer_batch_masked(params, thresholds, cfg: SNNConfig, images, n_valid, *,
-                       backend: str = "queue_pallas", device=None):
+                       backend: str = "dense", device=None):
     """Run a padded (B, H, W, C) bucket; return only the valid prefix."""
     _check_n_valid(n_valid, images.shape[0])
     logits, stats = infer_batch(params, thresholds, cfg, images,
@@ -669,6 +803,9 @@ def infer_batch_masked(params, thresholds, cfg: SNNConfig, images, n_valid, *,
     return slice_valid(logits, stats, n_valid)
 
 
+register_backend("dense", DenseBackend())
+register_backend("dense_unrolled", DenseBackend(unroll=True))
+register_backend("queue", QueueBackend(accum="word"))
 register_backend("queue_pallas", QueueBackend())
 register_backend("queue_ref", QueueBackend(accum="ref"))
 register_backend("queue_sparse", SparseQueueBackend())

@@ -24,12 +24,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("spike_pipeline", "quant_matmul", "spike_sparse")
+SOURCES = ("spike_pipeline", "quant_matmul", "spike_sparse", "event_accum",
+           "spike_compact", "moe_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {"fused_spike_accum": 0, "quant_matmul": 0,
-                 "fused_spike_accum_sparse": 0}
+                 "fused_spike_accum_sparse": 0, "event_accum": 0,
+                 "spike_compact": 0, "moe_gather": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

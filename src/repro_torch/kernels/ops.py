@@ -8,10 +8,15 @@ launches only: it stays 0 on the CPU.
 """
 from __future__ import annotations
 
+import math
+
 from . import ref as _ref
 from ._cuda import launch_counts, reset_launch_counts  # noqa: F401
+from .event_accum import event_accum_cuda, event_accum_plain
+from .moe_gather import moe_gather_cuda, moe_gather_plain
 from .quant_matmul import quant_matmul_cuda, quant_matmul_plain
 from .spike_pipeline import fused_spike_accum_cuda, fused_spike_accum_plain
+from .spike_compact import spike_compact_cuda, spike_compact_plain
 from .spike_sparse import (fused_spike_accum_sparse_cuda,
                            fused_spike_accum_sparse_plain)
 
@@ -61,3 +66,38 @@ def quant_matmul(a_q, b_q, a_scale, b_scale):
     if a_q.device.type == "cuda":
         return quant_matmul_cuda(a_q, b_q, a_scale, b_scale)
     return quant_matmul_plain(a_q, b_q, a_scale, b_scale)
+
+
+def event_accum(words, counts, weights, v_mem, *, K, n_win, bits):
+    """Add one step's queued events into the membrane.
+
+    words (..., C_in, K2, D) int32, counts (..., C_in, K2) int32, weights
+    (K, K, C_in, C_out), v_mem (..., H, W, C_out) -> the new membrane; the
+    leading axes (none, or a batch) are rows of one launch.
+    """
+    lead = v_mem.shape[:-3]
+    N = math.prod(lead)
+    args = (words.reshape(N, *words.shape[-3:]),
+            counts.reshape(N, *counts.shape[-2:]), weights,
+            v_mem.reshape(N, *v_mem.shape[-3:]))
+    kw = dict(K=K, n_win=n_win, bits=bits)
+    if v_mem.device.type == "cuda":
+        out = event_accum_cuda(*args, **kw)
+    else:
+        out = event_accum_plain(*args, **kw)
+    return out.reshape(*lead, *out.shape[1:])
+
+
+def spike_compact(occ, *, n_win, bits, depth, invalid):
+    """(R, P) occupancy rows -> (words (R, depth), uncapped counts (R,))."""
+    kw = dict(n_win=n_win, bits=bits, depth=depth, invalid=invalid)
+    if occ.device.type == "cuda":
+        return spike_compact_cuda(occ, **kw)
+    return spike_compact_plain(occ, **kw)
+
+
+def moe_gather(x, indices):
+    """Rows ``indices[s]`` of ``x`` (T, d); a negative index gives zeros."""
+    if x.device.type == "cuda":
+        return moe_gather_cuda(x, indices)
+    return moe_gather_plain(x, indices)

@@ -10,6 +10,7 @@ atomics, so the fp32 oracle's summation order is fixed only on the CPU.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.quantization import quantize_symmetric
 
@@ -81,3 +82,57 @@ def quant_matmul_ref(a_q, b_q, a_scale, b_scale):
     """
     prod = torch.matmul(a_q.to(torch.int32), b_q.to(torch.int32))
     return prod.to(torch.float32) * (a_scale * b_scale)
+
+
+def event_accum_ref(words, counts, weights, v_mem, *, K, n_win, bits):
+    """Oracle for the event accumulator: decode the queues to a dense spike
+    map, then add one SAME conv of it to ``v_mem``.
+
+    words (C_in, K2, D) int32, counts (C_in, K2), weights (K, K, C_in,
+    C_out), v_mem (H, W, C_out). A slot is live when its window row is in
+    range and it lies below its queue's count — the identity
+    event_conv2d(AEQ(map)) == conv2d(map) the design rests on.
+    """
+    C_in, K2, D = words.shape
+    H, W, C_out = v_mem.shape
+    mask = (1 << bits) - 1
+    i_c = (words >> bits) & mask
+    j_c = words & mask
+    slot = torch.arange(D, dtype=torch.int32, device=words.device)
+    valid = (i_c < n_win) & (slot < counts[..., None])
+    ph = torch.arange(K2, dtype=torch.int32, device=words.device)[:, None]
+    c, y, x = (a[valid] for a in (
+        torch.arange(C_in, device=words.device)[:, None, None].expand_as(i_c),
+        i_c * K + ph // K, j_c * K + ph % K))
+    side = n_win * K
+    spikes = torch.zeros((C_in, side, side), dtype=v_mem.dtype,
+                         device=words.device)
+    spikes.index_put_((c, y.long(), x.long()),
+                      torch.ones_like(c, dtype=v_mem.dtype), accumulate=True)
+    out = F.conv2d(spikes[None, :, :H, :W], weights.permute(3, 2, 0, 1),
+                   padding=K // 2)
+    return v_mem + out[0].permute(1, 2, 0)
+
+
+def spike_compact_ref(occ, *, n_win, bits, depth, invalid):
+    """Oracle for the queue encoder: a cumsum gives each fired position its
+    slot; one scatter into a row with a spare drop column past ``depth``.
+    Returns (words (R, depth), uncapped counts (R,)), both int32."""
+    R, P = occ.shape
+    fired = occ > 0
+    pos = torch.arange(P, dtype=torch.int32, device=occ.device)
+    packed = ((pos // n_win) << bits) | (pos % n_win)
+    slot = torch.cumsum(fired.to(torch.int32), dim=1) - 1
+    target = torch.where(fired & (slot < depth), slot, depth)
+    flat = torch.full((R, depth + 1), invalid, dtype=torch.int32,
+                      device=occ.device)
+    flat.scatter_(1, target, packed.expand(R, P).contiguous())
+    return flat[:, :depth].contiguous(), fired.sum(1).to(torch.int32)
+
+
+def moe_gather_ref(x, indices):
+    """Oracle for the MoE row gather: row ``indices[s]`` of ``x``, or zeros
+    where the index is negative."""
+    ok = indices >= 0
+    rows = x[torch.clamp(indices, 0, x.shape[0] - 1).long()]
+    return rows * ok[:, None].to(x.dtype)

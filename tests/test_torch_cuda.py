@@ -14,9 +14,13 @@ from repro_torch.core import engine
 from repro_torch.core.aeq import phase_occupancy
 from repro_torch.core.encoding import make_format
 from repro_torch.device import resolve_device
+from repro_torch.core import aeq
+from repro_torch.kernels import event_accum as ea
+from repro_torch.kernels import moe_gather as mg
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import ref
+from repro_torch.kernels import spike_compact as sc
 from repro_torch.kernels import spike_pipeline as sp
 from repro_torch.kernels import spike_sparse as ss
 
@@ -26,6 +30,13 @@ B1_SHAPES = [  # (hw, c_in, c_out, depth), as tests/test_torch_kernels.py
 ]
 B2_SHAPES = [(16, 32, 8), (100, 200, 60), (128, 128, 128), (130, 257, 64),
              (1, 1152, 10), (64, 1152, 10)]
+B4_SHAPES = [  # (hw, c_in, c_out, depth): tests/test_torch_word.py, + 32x32
+    (9, 1, 8, 16), (12, 3, 16, 32), (28, 4, 32, 64), (28, 2, 128, 24),
+    (10, 3, 8, 4), (32, 3, 40, 64)]
+B5_SHAPES = [  # (rows, n_win, depth): tests/test_kernels.py, + wide rows
+    (4, 4, 8), (9, 10, 40), (18, 10, 16), (2000, 11, 64), (300, 4, 2)]
+B6_SHAPES = [(16, 8, 12), (64, 32, 50), (10, 128, 40), (1024, 128, 512),
+             (7, 3, 9)]
 
 
 @pytest.fixture
@@ -88,8 +99,10 @@ def test_engine_on_card_equals_cpu_on_dyadic_net(cuda, weight_bits):
     imgs = (rng.integers(0, 256, (5, hw, hw, c)) / 256.0).astype(np.float32)
     cfg = engine.SNNConfig(spec=spec, input_hw=hw, input_c=c, T=3, depth=2,
                            mode="mttfs", weight_bits=weight_bits)
-    lg, sg = engine.infer_batch(params, th, cfg, imgs, device=cuda)
-    lc, sc = engine.infer_batch(params, th, cfg, imgs, device="cpu")
+    lg, sg = engine.infer_batch(params, th, cfg, imgs, backend="queue_pallas",
+                                device=cuda)
+    lc, sc = engine.infer_batch(params, th, cfg, imgs, backend="queue_pallas",
+                                device="cpu")
     assert torch.equal(lg.cpu(), lc)
     for a, b in zip(sg, sc):
         assert torch.equal(a.cpu(), b)
@@ -210,7 +223,8 @@ def test_queue_sparse_on_card_equals_cpu_on_dyadic_net(cuda, input_mode,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["queue_pallas", "queue_sparse"])
+@pytest.mark.parametrize("backend", ["queue_pallas", "queue_sparse", "queue",
+                                     "dense", "dense_unrolled"])
 def test_fp32_head_mask_contract_gaussian_bucket_64(cuda, backend):
     """Gaussian weights, fp32 head: 33 valid rows of a bucket of 64 equal
     the unpadded call of 33 rows, bit for bit (the head multiplies
@@ -236,3 +250,156 @@ def test_fp32_head_mask_contract_gaussian_bucket_64(cuda, backend):
     assert torch.equal(lp, lu)
     for a, b in zip(sp_, su):
         assert torch.equal(a, b)
+
+
+def _dyadic_net(spec, hw, c, seed):
+    rng = np.random.default_rng(seed)
+    plan = engine.compile_plan(spec, hw, c)
+    params = [{} for _ in range(plan.n_layers)]
+    for cp in plan.convs:
+        params[cp.index] = {
+            "w": rng.integers(-96, 97, (3, 3, cp.in_c, cp.out_c)) / 256.0,
+            "b": np.full(cp.out_c, 0.0625)}
+    w = rng.integers(-127, 128, (plan.out.n_in, 10))
+    w.flat[0] = 127
+    params[plan.out.index] = {"w": w / 256.0, "b": np.zeros(10)}
+    imgs = (rng.integers(0, 256, (5, hw, hw, c)) / 256.0).astype(np.float32)
+    return plan, params, [0.5] * plan.n_layers, imgs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_win,depth", B5_SHAPES)
+def test_spike_compact_kernel_bit_exact(cuda, rows, n_win, depth):
+    """B5: words and uncapped counts equal the plain version and the
+    oracle, in the compressed and the uncompressed (n_win = 4) format."""
+    fmt = make_format(n_win * 3, 3)
+    occ = torch.from_numpy((np.random.default_rng(rows).random(
+        (rows, n_win * n_win)) < 0.3).astype(np.int32)).to(cuda)
+    kw = dict(n_win=n_win, bits=fmt.bits_coord, depth=depth,
+              invalid=fmt.invalid_word)
+    ops.reset_launch_counts()
+    words, counts = ops.spike_compact(occ, **kw)
+    assert ops.launch_counts["spike_compact"] == 1
+    torch.cuda.synchronize()
+    for want in (sc.spike_compact_plain(occ, **kw),
+                 ref.spike_compact_ref(occ, **kw)):
+        assert torch.equal(words, want[0]) and torch.equal(counts, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c_in,c_out,depth", B4_SHAPES)
+def test_event_accum_kernel_matches_plain(cuda, hw, c_in, c_out, depth):
+    """B4 over a step's slice of a (B, T, C, K2, D) queue: dyadic weights
+    bit-exact against the plain version and the oracle; Gaussian weights
+    within 1e-4 (the kernel adds in (c, phase) order, the plain version
+    offset by offset); each row equals its launch alone."""
+    rng = np.random.default_rng(hw * depth + c_in)
+    raster = torch.from_numpy((rng.random((3, 2, c_in, hw, hw)) < 0.2)
+                              .astype(np.float32)).to(cuda)
+    fmt = make_format(hw, 3)
+    q = aeq.aeq_from_raster_batch(fmt, raster, depth)
+    words, counts = q.words[:, 1], q.counts[:, 1]      # strided rows
+    kw = dict(K=3, n_win=fmt.n_win, bits=fmt.bits_coord)
+    vm = torch.from_numpy(
+        (np.round(rng.normal(size=(3, hw, hw, c_out)) * 16) / 16)
+        .astype(np.float32)).to(cuda)
+    w_dy = torch.from_numpy((rng.integers(-128, 128, (3, 3, c_in, c_out))
+                             / 256.0).astype(np.float32)).to(cuda)
+    w_g = torch.from_numpy(
+        rng.normal(size=(3, 3, c_in, c_out)).astype(np.float32)).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.event_accum(words, counts, w_dy, vm, **kw)
+    assert ops.launch_counts["event_accum"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ea.event_accum_plain(words, counts, w_dy, vm,
+                                                 **kw))
+    for n in range(3):
+        assert torch.equal(got[n], ref.event_accum_ref(
+            words[n], counts[n], w_dy, vm[n], **kw))
+    got = ea.event_accum_cuda(words, counts, w_g, vm, **kw)
+    want = ea.event_accum_plain(words, counts, w_g, vm, **kw)
+    assert torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+    for n in range(3):
+        one = ea.event_accum_cuda(words[n:n + 1], counts[n:n + 1], w_g,
+                                  vm[n:n + 1].contiguous(), **kw)
+        assert torch.equal(one[0], got[n])
+
+
+@pytest.mark.cuda
+def test_event_accum_kernel_refuses_bf16(cuda):
+    words = torch.zeros((1, 1, 9, 4), dtype=torch.int32, device=cuda)
+    counts = torch.zeros((1, 1, 9), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ea.event_accum_cuda(
+            words, counts, torch.ones((3, 3, 1, 2), device=cuda),
+            torch.zeros((1, 12, 12, 2), dtype=torch.bfloat16, device=cuda),
+            K=3, n_win=4, bits=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,s", B6_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int8])
+def test_moe_gather_kernel_bit_exact(cuda, t, d, s, dtype):
+    rng = np.random.default_rng(t + d)
+    x = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32) * 50)
+    x = x.to(dtype).to(cuda)
+    idx = torch.from_numpy(rng.integers(-1, t, s).astype(np.int32)).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.moe_gather(x, idx)
+    assert ops.launch_counts["moe_gather"] == 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, mg.moe_gather_plain(x, idx))
+    assert torch.equal(got, ref.moe_gather_ref(x, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_mode", ["analog", "binary"])
+@pytest.mark.parametrize("weight_bits", [None, 8])
+def test_queue_on_card_equals_cpu_on_dyadic_net(cuda, input_mode,
+                                                weight_bits):
+    """The word-level queue on the card (B5 once per event-driven stage, B4
+    once per step of each) == on the CPU (plain versions), logits and
+    stats; B1 and B3 never run. Per-sample infer equals the batch rows."""
+    spec, hw, c = "6C3-P2-8C3-P3-10", 12, 2
+    plan, params, th, imgs = _dyadic_net(spec, hw, c, 2)
+    cfg = engine.SNNConfig(spec=spec, input_hw=hw, input_c=c, T=3, depth=2,
+                           mode="mttfs", input_mode=input_mode,
+                           weight_bits=weight_bits)
+    ops.reset_launch_counts()
+    lg, sg = engine.infer_batch(params, th, cfg, imgs, backend="queue",
+                                device=cuda)
+    stages = len(plan.convs) - (input_mode == "analog")
+    assert ops.launch_counts["spike_compact"] == stages
+    assert ops.launch_counts["event_accum"] == stages * cfg.T
+    assert ops.launch_counts["fused_spike_accum"] == 0
+    assert ops.launch_counts["fused_spike_accum_sparse"] == 0
+    assert ops.launch_counts["quant_matmul"] == (weight_bits is not None)
+    lc, sc_ = engine.infer_batch(params, th, cfg, imgs, backend="queue",
+                                 device="cpu")
+    assert torch.equal(lg.cpu(), lc)
+    for a, b in zip(sg, sc_):
+        assert torch.equal(a.cpu(), b)
+    for i in (0, 3):
+        l1, s1 = engine.infer(params, th, cfg, imgs[i], backend="queue",
+                              device=cuda)
+        assert torch.equal(l1, lg[i])
+        for a, b in zip(s1, sg):
+            assert torch.equal(a, b[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dense", "dense_unrolled"])
+@pytest.mark.parametrize("input_mode", ["analog", "binary"])
+def test_dense_on_card_equals_cpu_on_dyadic_net(cuda, backend, input_mode):
+    spec, hw, c = "6C3-P2-8C3-P3-10", 12, 2
+    _, params, th, imgs = _dyadic_net(spec, hw, c, 4)
+    cfg = engine.SNNConfig(spec=spec, input_hw=hw, input_c=c, T=3, depth=2,
+                           mode="mttfs_cont", input_mode=input_mode)
+    lg, sg = engine.infer_batch(params, th, cfg, imgs, backend=backend,
+                                device=cuda)
+    lc, sc_ = engine.infer_batch(params, th, cfg, imgs, backend=backend,
+                                 device="cpu")
+    assert torch.equal(lg.cpu(), lc)
+    for a, b in zip(sg, sc_):
+        assert torch.equal(a.cpu(), b)

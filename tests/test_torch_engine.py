@@ -37,7 +37,7 @@ def run_both(params, th, cfg_kw, imgs):
         [jnp.asarray(t) for t in th], jcfg, jnp.asarray(imgs),
         backend="queue_pallas")
     lt, st = tengine.infer_batch(params, th, tengine.SNNConfig(**cfg_kw),
-                                 imgs, device="cpu")
+                                 imgs, backend="queue_pallas", device="cpu")
     return (np.asarray(lj), sj), (lt.numpy(), st)
 
 
@@ -133,9 +133,9 @@ def test_mask_contract_padded_equals_unpadded(n_valid):
     padded = imgs.copy()
     padded[n_valid:] = images(4, hw, c, seed=7)[n_valid:]   # junk padding
     lp, sp = tengine.infer_batch_masked(params, th, cfg, padded, n_valid,
-                                        device="cpu")
+                                        backend="queue_pallas", device="cpu")
     lu, su = tengine.infer_batch(params, th, cfg, imgs[:n_valid],
-                                 device="cpu")
+                                 backend="queue_pallas", device="cpu")
     assert torch.equal(lp, lu)
     for f in STAT_FIELDS:
         assert torch.equal(getattr(sp, f), getattr(su, f)), f
@@ -157,7 +157,8 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch):
     params, th = dyadic_net(spec, hw, c)
     cfg = tengine.SNNConfig(spec=spec, input_hw=hw, input_c=c, T=3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tengine.infer_batch(params, th, cfg, images(1, hw, c))
+        tengine.infer_batch(params, th, cfg, images(1, hw, c),
+                            backend="queue_pallas")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmodel.init_params(torch.Generator().manual_seed(0), spec, hw, c)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -182,12 +183,13 @@ def test_init_params_layout_and_bridge():
 
 def test_unknown_backend_and_mode_list_registered():
     with pytest.raises(ValueError, match="queue_pallas"):
-        tengine.get_backend("dense")
+        tengine.get_backend("bogus")
     spec, hw, c = NETS["plain"]
     params, th = dyadic_net(spec, hw, c)
     cfg = tengine.SNNConfig(spec=spec, input_hw=hw, input_c=c, mode="nope")
     with pytest.raises(ValueError, match="mttfs"):
-        tengine.infer_batch(params, th, cfg, images(1, hw, c), device="cpu")
+        tengine.infer_batch(params, th, cfg, images(1, hw, c),
+                            backend="queue_pallas", device="cpu")
 
 
 def test_quant_head_differs_from_reference_fma_by_at_most_one_ulp():

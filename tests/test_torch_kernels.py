@@ -123,7 +123,9 @@ def test_cpu_dispatch_never_counts_launches():
     a = torch.ones((4, 8), dtype=torch.int8)
     tops.quant_matmul(a, a.T.contiguous(), torch.tensor(1.0), torch.tensor(1.0))
     assert tops.launch_counts == {"fused_spike_accum": 0, "quant_matmul": 0,
-                                  "fused_spike_accum_sparse": 0}
+                                  "fused_spike_accum_sparse": 0,
+                                  "event_accum": 0, "spike_compact": 0,
+                                  "moe_gather": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

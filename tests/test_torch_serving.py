@@ -58,7 +58,9 @@ def test_serve_runtime_matches_reference(weight_bits):
     jresp, _ = _serve(jserve, jreg, imgs)
     tresp, trt = _serve(tserve, treg, imgs)
     assert tops.launch_counts == {"fused_spike_accum": 0, "quant_matmul": 0,
-                                  "fused_spike_accum_sparse": 0}
+                                  "fused_spike_accum_sparse": 0,
+                                  "event_accum": 0, "spike_compact": 0,
+                                  "moe_gather": 0}
 
     assert len(tresp) == len(jresp) == len(imgs)
     for t, j in zip(tresp, jresp):
@@ -81,7 +83,8 @@ def test_per_request_energy_sums_to_one_shot_pricing():
     reg.register("m", params_np, th, cfg)
     resp, _ = _serve(tserve, reg, imgs)
 
-    _, stats = tengine.infer_batch(params_np, th, cfg, imgs, device="cpu")
+    _, stats = tengine.infer_batch(params_np, th, cfg, imgs,
+                                   backend="queue_pallas", device="cpu")
     record = StatsRecord(*(getattr(stats, f).numpy()
                            for f in StatsRecord._fields))
     one_shot = price_record(record, input_hw=HW).total_j.numpy()

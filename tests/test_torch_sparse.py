@@ -299,10 +299,12 @@ def test_queue_sparse_mask_contract_3_vs_8():
 
 
 def test_backends_registered_and_flagged():
-    assert tengine.available_backends() == ("queue_pallas", "queue_ref",
-                                            "queue_sparse")
+    assert tengine.available_backends() == (
+        "dense", "dense_unrolled", "queue", "queue_pallas", "queue_ref",
+        "queue_sparse")
     assert tengine.get_backend("queue_sparse").host_dispatch is True
-    for name in ("queue_pallas", "queue_ref"):
+    for name in ("dense", "dense_unrolled", "queue", "queue_pallas",
+                 "queue_ref"):
         assert not getattr(tengine.get_backend(name), "host_dispatch", False)
     with pytest.raises(ValueError, match="accum"):
         tengine.QueueBackend(accum="jax")

@@ -1,0 +1,469 @@
+"""The port's word-level queue slice against the JAX package, on the CPU.
+
+Same numpy-seeded inputs on both sides. The JAX side is its pure functions
+only: the oracles of ``kernels/ref.py``, the word-level AEQ model
+(``aeq.compact_spikes`` / ``aeq_from_raster``), ``snn_layers`` and the
+engine's ``queue`` backend and ``infer`` — never the Pallas interpret
+paths. On the CPU the port's ``kernels.ops`` runs each kernel's plain
+version (B5 ``spike_compact``, B4 ``event_accum``, B6 ``moe_gather``); the
+CUDA kernels are held against those on the card by
+``tests/test_torch_cuda.py``.
+
+Tolerances: integer outputs (words, counts, overflow, stats) exact. The
+plain event accumulate adds in the reference ``event_conv2d``'s order
+(offset by offset, events in (c, phase, slot) order) and ``index_add_`` on
+the CPU adds in index order, so ``event_conv2d`` is bit-exact on Gaussian
+weights too. The conv oracles sum in another order than XLA's conv: 1e-4 on
+Gaussian weights, exact on dyadic ones. Engine logits: bit-exact on the
+dyadic nets of ``_torch_nets``.
+"""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import aeq as jaeq
+from repro.core import encoding as jenc
+from repro.core import engine as jengine
+from repro.core import neuron as jneuron
+from repro.core import snn_layers as jlayers
+from repro.kernels import ref as jref
+from repro_torch.core import aeq as taeq
+from repro_torch.core import encoding as tenc
+from repro_torch.core import engine as tengine
+from repro_torch.core import snn_layers as tlayers
+from repro_torch.kernels import event_accum as tea
+from repro_torch.kernels import moe_gather as tmg
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import spike_compact as tsc
+
+from _torch_nets import dyadic_net, images
+
+EA_SHAPES = [  # (hw, c_in, c_out, depth): tests/test_kernels.py, + hw=10
+    (9, 1, 8, 16), (12, 3, 16, 32), (28, 4, 32, 64), (28, 2, 128, 24),
+    (10, 3, 8, 4)]
+SC_SHAPES = [(4, 4, 8), (9, 10, 40), (18, 10, 16)]   # (rows, n_win, depth)
+MG_SHAPES = [(16, 8, 12), (64, 32, 50), (10, 128, 40)]   # (T, d, S)
+STAT_FIELDS = ("events_in", "spikes_out", "add_ops", "overflow",
+               "queue_words")
+SPEC, HW, C = "6C3-P2-8C3-P3-10", 12, 2     # tests/test_torch_engine.py
+
+
+def _raster(T, c_in, hw, seed, p_fire=0.15):
+    rng = np.random.default_rng(seed)
+    return (rng.random((T, c_in, hw, hw)) < p_fire).astype(np.float32)
+
+
+def _weights(c_in, c_out, dyadic, seed=1):
+    rng = np.random.default_rng(seed)
+    if dyadic:
+        return (rng.integers(-128, 128, (3, 3, c_in, c_out))
+                / 256.0).astype(np.float32)
+    return rng.normal(size=(3, 3, c_in, c_out)).astype(np.float32)
+
+
+def _queues(hw, c_in, depth, seed, T=2):
+    """The same raster's AEQ from both packages (asserted equal)."""
+    raster = _raster(T, c_in, hw, seed)
+    fj, ft = jenc.make_format(hw, 3), tenc.make_format(hw, 3)
+    qj = jaeq.aeq_from_raster(fj, jnp.asarray(raster), depth)
+    qt = taeq.aeq_from_raster(ft, torch.from_numpy(raster), depth)
+    for a, b in zip(qt, qj):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    return fj, ft, qj, qt
+
+
+# --- the oracles ------------------------------------------------------------
+
+@pytest.mark.parametrize("hw,c_in,c_out,depth", EA_SHAPES)
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_event_accum_ref_matches_reference(hw, c_in, c_out, depth, dyadic):
+    fj, ft, qj, qt = _queues(hw, c_in, depth, seed=hw * depth)
+    w = _weights(c_in, c_out, dyadic)
+    vm = np.random.default_rng(2).normal(size=(hw, hw, c_out))
+    vm = (np.round(vm * 16) / 16 if dyadic else vm).astype(np.float32)
+    kw = dict(K=3, n_win=fj.n_win, bits=fj.bits_coord)
+    want = jref.event_accum_ref(qj.words[0], qj.counts[0], jnp.asarray(w),
+                                jnp.asarray(vm), **kw)
+    got = tref.event_accum_ref(qt.words[0], qt.counts[0], torch.from_numpy(w),
+                               torch.from_numpy(vm), **kw)
+    if dyadic:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows,n_win,depth", SC_SHAPES)
+def test_spike_compact_ref_and_plain_match_reference(rows, n_win, depth):
+    """The torch oracle and B5's plain version (through ``ops``) equal the
+    JAX oracle exactly, words and uncapped counts."""
+    fmt = jenc.make_format(n_win * 3, 3)
+    occ = (np.random.default_rng(rows).random((rows, n_win * n_win))
+           < 0.3).astype(np.int32)
+    kw = dict(n_win=n_win, bits=fmt.bits_coord, depth=depth,
+              invalid=fmt.invalid_word)
+    wj, cj = jref.spike_compact_ref(jnp.asarray(occ), **kw)
+    for fn in (tref.spike_compact_ref, tops.spike_compact):
+        wt, ct = fn(torch.from_numpy(occ), **kw)
+        assert wt.dtype == ct.dtype == torch.int32
+        np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+        np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+
+
+@pytest.mark.parametrize("t,d,s", MG_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gather_ref_and_plain_match_reference(t, d, s, dtype):
+    rng = np.random.default_rng(t + d)
+    x = rng.normal(size=(t, d)).astype(np.float32)
+    idx = rng.integers(-1, t, s).astype(np.int32)
+    want = np.asarray(jref.moe_gather_ref(jnp.asarray(x, dtype), jnp.asarray(idx))
+                      .astype(jnp.float32))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    for fn in (tref.moe_gather_ref, tops.moe_gather):
+        got = fn(xt, torch.from_numpy(idx))
+        assert got.dtype == xt.dtype and got.shape == (s, d)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_moe_gather_zero_rows_and_clamp():
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    got = tops.moe_gather(x, torch.tensor([-1, 3, 9, 0], dtype=torch.int32))
+    assert torch.equal(got, torch.stack([torch.zeros(3), x[3], x[3], x[0]]))
+
+
+# --- the word-level AEQ model -------------------------------------------------
+
+@pytest.mark.parametrize("hw,depth", [(9, 2), (12, 5), (10, 3), (28, 64)])
+def test_compact_spikes_matches_reference(hw, depth):
+    """Per map: words, capped counts and dropped events, in the compressed
+    format (9, 28) and the uncompressed fallback (10, 12: n_win = 4)."""
+    maps = _raster(3, 1, hw, seed=hw, p_fire=0.4)[:, 0]
+    fj, ft = jenc.make_format(hw, 3), tenc.make_format(hw, 3)
+    wt, ct, dt = taeq.compact_spikes(ft, torch.from_numpy(maps), depth)
+    for i, m in enumerate(maps):
+        wj, cj, dj = jaeq.compact_spikes(fj, jnp.asarray(m), depth)
+        np.testing.assert_array_equal(wt[i].numpy(), np.asarray(wj))
+        np.testing.assert_array_equal(ct[i].numpy(), np.asarray(cj))
+        assert int(dt[i]) == int(dj)
+    assert int(dt.sum()) > 0 or depth == 64
+
+
+def test_phase_split_and_decode_match_reference():
+    fj, ft = jenc.make_format(12, 3), tenc.make_format(12, 3)
+    m = _raster(1, 1, 12, seed=4, p_fire=0.3)[0, 0]
+    np.testing.assert_array_equal(
+        taeq._phase_split(ft, torch.from_numpy(m)).numpy(),
+        np.asarray(jaeq._phase_split(fj, jnp.asarray(m))))
+    for hw in (9, 12):
+        fj, ft = jenc.make_format(hw, 3), tenc.make_format(hw, 3)
+        words, _, _ = jaeq.compact_spikes(
+            fj, jnp.asarray(_raster(1, 1, hw, seed=hw)[0, 0]), 8)
+        got = taeq.decode_positions(ft, torch.from_numpy(np.array(words)))
+        for a, b in zip(got, jaeq.decode_positions(fj, words)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("hw,c_in,depth", [(9, 2, 3), (12, 3, 16), (10, 2, 2)])
+def test_aeq_builders_match_reference(hw, c_in, depth):
+    """aeq_init, aeq_set_segment, aeq_from_raster(_batch) and
+    aeq_total_events, field by field."""
+    fj, ft = jenc.make_format(hw, 3), tenc.make_format(hw, 3)
+    raster = np.stack([_raster(3, c_in, hw, seed=s, p_fire=0.3)
+                       for s in (1, 2)])                    # (B, T, C, H, W)
+    qb = taeq.aeq_from_raster_batch(ft, torch.from_numpy(raster), depth)
+    jb = jaeq.aeq_from_raster_batch(fj, jnp.asarray(raster), depth)
+    for a, b in zip(qb, jb):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(qb.overflow.sum()) > 0 or depth == 16
+    q = taeq.aeq_init(ft, 3, c_in, depth)
+    j = jaeq.aeq_init(fj, 3, c_in, depth)
+    q = taeq.aeq_set_segment(q, ft, 1, torch.from_numpy(raster[0, 1]))
+    j = jaeq.aeq_set_segment(j, fj, 1, jnp.asarray(raster[0, 1]))
+    for a, b in zip(q, j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    q1 = taeq.aeq_from_raster(ft, torch.from_numpy(raster[1]), depth)
+    assert int(taeq.aeq_total_events(q1)) == int(
+        jaeq.aeq_total_events(jaeq.aeq_from_raster(
+            fj, jnp.asarray(raster[1]), depth)))
+    assert int(q1.overflow) == int(qb.overflow[1])
+
+
+# --- the event layers -------------------------------------------------------
+
+@pytest.mark.parametrize("hw,c_in,c_out,depth", EA_SHAPES)
+def test_event_conv2d_bit_exact_on_gaussian_weights(hw, c_in, c_out, depth):
+    """Membrane and n_ops equal the reference's at every step, Gaussian
+    weights and membrane included (the plain accumulate keeps its order)."""
+    fj, ft, qj, qt = _queues(hw, c_in, depth, seed=hw * depth)
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=(3, 3, c_in, c_out)).astype(np.float32)
+    vm = rng.normal(size=(hw, hw, c_out)).astype(np.float32)
+    for t in range(2):
+        vj, nj = jlayers.event_conv2d(jnp.asarray(vm), jnp.asarray(w), qj, fj,
+                                      t)
+        vt, nt = tlayers.event_conv2d(torch.from_numpy(vm),
+                                      torch.from_numpy(w), qt, ft, t)
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+        assert nt.dtype == torch.int32 and int(nt) == int(nj)
+
+
+def test_event_conv2d_batched_rows_equal_per_sample():
+    """A (B, T, C, K2, D) queue and a (B, H, W, C_out) membrane: each row
+    equals the per-sample call (one B4 launch covers all rows)."""
+    ft = tenc.make_format(12, 3)
+    raster = torch.from_numpy(np.stack([_raster(2, 3, 12, seed=s)
+                                        for s in (5, 6, 7)]))
+    q = taeq.aeq_from_raster_batch(ft, raster, 8)
+    w = torch.from_numpy(_weights(3, 16, dyadic=False))
+    vm = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(3, 12, 12, 16)).astype(np.float32))
+    vb, nb = tlayers.event_conv2d(vm, w, q, ft, 1)
+    assert nb.shape == (3,)
+    for i in range(3):
+        v1, n1 = tlayers.event_conv2d(
+            vm[i], w, taeq.AEQ(q.words[i], q.counts[i], q.overflow[i]), ft, 1)
+        assert torch.equal(vb[i], v1) and int(nb[i]) == int(n1)
+
+
+@pytest.mark.parametrize("hw,c_in,c_out,depth", EA_SHAPES[:3])
+def test_event_conv2d_equals_dense_conv_oracle(hw, c_in, c_out, depth):
+    """The identity the design rests on, and the port's oracle against the
+    reference's: exact on dyadic weights with no drops (depth >= P)."""
+    rng = np.random.default_rng(hw)
+    m = (rng.random((c_in, hw, hw)) < 0.2).astype(np.float32)
+    w = _weights(c_in, c_out, dyadic=True)
+    ft = tenc.make_format(hw, 3)
+    q = taeq.aeq_from_raster(ft, torch.from_numpy(m[None]), ft.n_win ** 2)
+    v, _ = tlayers.event_conv2d(torch.zeros((hw, hw, c_out)),
+                                torch.from_numpy(w), q, ft, 0)
+    oracle = tlayers.dense_conv_oracle(torch.from_numpy(m),
+                                       torch.from_numpy(w))
+    assert torch.equal(v, oracle)
+    np.testing.assert_array_equal(
+        oracle.numpy(),
+        np.asarray(jlayers.dense_conv_oracle(jnp.asarray(m), jnp.asarray(w))))
+
+
+def test_event_dense_and_spike_maxpool_match_reference():
+    rng = np.random.default_rng(11)
+    spikes = (rng.random(40) < 0.3).astype(np.float32)
+    w = (rng.integers(-64, 64, (40, 6)) / 64.0).astype(np.float32)
+    vm = np.zeros(6, np.float32)
+    vj, nj = jlayers.event_dense(jnp.asarray(vm), jnp.asarray(w),
+                                 jnp.asarray(spikes))
+    vt, nt = tlayers.event_dense(torch.from_numpy(vm), torch.from_numpy(w),
+                                 torch.from_numpy(spikes))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    assert int(nt) == int(nj)
+    sp = (rng.random((4, 10, 10)) < 0.3).astype(np.float32)
+    latch = rng.random((4, 3, 3)) < 0.5
+    for once in (True, False):
+        got = tlayers.spike_maxpool(torch.from_numpy(sp), 3,
+                                    torch.from_numpy(latch), latch_once=once)
+        want = jlayers.spike_maxpool(jnp.asarray(sp), 3, jnp.asarray(latch),
+                                     latch_once=once)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("hw,c_in,c_out,depth", EA_SHAPES[:3])
+def test_event_accum_plain_matches_oracle_batched(hw, c_in, c_out, depth):
+    """B4's plain version over a leading row axis: each row equals the
+    torch oracle (1e-4: the oracle convolves) and the rows are
+    independent."""
+    ft = tenc.make_format(hw, 3)
+    raster = torch.from_numpy(np.stack([_raster(1, c_in, hw, seed=s)[0]
+                                        for s in (1, 2)]))   # (N, C, H, W)
+    q = taeq.aeq_from_raster(ft, raster, depth)   # rows as the T axis
+    w = torch.from_numpy(_weights(c_in, c_out, dyadic=False))
+    vm = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, hw, hw, c_out)).astype(np.float32))
+    kw = dict(K=3, n_win=ft.n_win, bits=ft.bits_coord)
+    got = tea.event_accum_plain(q.words, q.counts, w, vm, **kw)
+    for n in range(2):
+        want = tref.event_accum_ref(q.words[n], q.counts[n], w, vm[n], **kw)
+        torch.testing.assert_close(got[n], want, atol=1e-4, rtol=1e-4)
+        one = tops.event_accum(q.words[n], q.counts[n], w, vm[n], **kw)
+        assert torch.equal(one, got[n])
+
+
+def test_event_accum_count_kills_uncompressed_invalid_words():
+    """hw=10 has n_win = 4 and no spare pattern: the invalid word decodes to
+    window row 0, so only the count may kill a slot (as the TPU kernel)."""
+    ft = tenc.make_format(10, 3)
+    assert not ft.compressed
+    words = torch.full((1, 1, 9, 4), ft.invalid_word, dtype=torch.int32)
+    counts = torch.zeros((1, 1, 9), dtype=torch.int32)
+    vm = torch.zeros((1, 10, 10, 2))
+    w = torch.ones((3, 3, 1, 2))
+    out = tops.event_accum(words, counts, w, vm, K=3, n_win=4,
+                           bits=ft.bits_coord)
+    assert torch.equal(out, vm)
+
+
+# --- the engine's queue backend and infer ------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _reference(backend, mode, input_mode, weight_bits, B=16):
+    """The JAX engine at B=16 (rows are independent in the reference, so a
+    smaller batch is its prefix): numpy logits and stats."""
+    params, th = dyadic_net(SPEC, HW, C)
+    cfg = jengine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C, T=3,
+                            mode=mode, depth=2, input_mode=input_mode,
+                            weight_bits=weight_bits)
+    lj, sj = jengine.infer_batch(
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in params],
+        [jnp.asarray(t) for t in th], cfg, jnp.asarray(images(B, HW, C)),
+        backend=backend)
+    return np.asarray(lj), {f: np.asarray(getattr(sj, f))
+                            for f in STAT_FIELDS}
+
+
+def _port(backend, mode, input_mode, weight_bits, B):
+    params, th = dyadic_net(SPEC, HW, C)
+    cfg = tengine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C, T=3,
+                            mode=mode, depth=2, input_mode=input_mode,
+                            weight_bits=weight_bits)
+    return tengine.infer_batch(params, th, cfg, images(16, HW, C)[:B],
+                               backend=backend, device="cpu")
+
+
+def assert_matches(lt, st, lj, sj, B):
+    np.testing.assert_array_equal(lt.numpy(), lj[:B])
+    for f in STAT_FIELDS:
+        got = getattr(st, f)
+        assert got.dtype == torch.int32, f
+        np.testing.assert_array_equal(got.numpy(), sj[f][:B], err_msg=f)
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("input_mode", ["analog", "binary"])
+@pytest.mark.parametrize("mode", jneuron.MODES)
+def test_queue_backend_exact_on_dyadic_net(mode, input_mode, B):
+    """queue == the reference's word-level queue backend, logits and all
+    five stats, at depth 2 (overflowing)."""
+    lj, sj = _reference("queue", mode, input_mode, None)
+    lt, st = _port("queue", mode, input_mode, None, B)
+    assert_matches(lt, st, lj, sj, B)
+    assert int(sj["overflow"][:B].sum()) > 0
+
+
+@pytest.mark.parametrize("input_mode", ["analog", "binary"])
+@pytest.mark.parametrize("mode", jneuron.MODES)
+def test_queue_backend_exact_with_int8_head(mode, input_mode):
+    lj, sj = _reference("queue", mode, input_mode, 8)
+    lt, st = _port("queue", mode, input_mode, 8, 3)
+    assert_matches(lt, st, lj, sj, 3)
+
+
+def test_queue_backend_gaussian_net():
+    """Gaussian weights: stats exact, logits to 1e-4 (the head's product
+    sums in another order than XLA's; the conv stages are bit-exact)."""
+    rng = np.random.default_rng(5)
+    plan = jengine.compile_plan(SPEC, HW, C)
+    params = [{} for _ in range(plan.n_layers)]
+    for cp in plan.convs:
+        params[cp.index] = {
+            "w": rng.normal(0, 0.5, (3, 3, cp.in_c, cp.out_c)),
+            "b": np.full(cp.out_c, 0.05)}
+    params[plan.out.index] = {"w": rng.normal(size=(plan.out.n_in, 10)),
+                              "b": np.zeros(10)}
+    params = [{k: v.astype(np.float32) for k, v in p.items()} for p in params]
+    th = [np.float32(1.0)] * plan.n_layers
+    imgs = rng.random((4, HW, HW, C)).astype(np.float32)
+    kw = dict(spec=SPEC, input_hw=HW, input_c=C, T=3, mode="mttfs_cont",
+              depth=8, input_mode="binary")
+    lj, sj = jengine.infer_batch(
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in params],
+        [jnp.asarray(t) for t in th], jengine.SNNConfig(**kw),
+        jnp.asarray(imgs), backend="queue")
+    lt, st = tengine.infer_batch(params, th, tengine.SNNConfig(**kw), imgs,
+                                 backend="queue", device="cpu")
+    for f in STAT_FIELDS:
+        np.testing.assert_array_equal(getattr(st, f).numpy(),
+                                      np.asarray(getattr(sj, f)))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["queue", "dense"])
+@pytest.mark.parametrize("input_mode", ["analog", "binary"])
+def test_infer_matches_reference_and_batch_rows(backend, input_mode):
+    """Per-sample ``infer``: the reference's per-sample shapes and values,
+    and bit for bit the sample's row of ``infer_batch``."""
+    params, th = dyadic_net(SPEC, HW, C)
+    kw = dict(spec=SPEC, input_hw=HW, input_c=C, T=3, mode="mttfs", depth=2,
+              input_mode=input_mode)
+    imgs = images(3, HW, C, seed=4)
+    lb, sb = tengine.infer_batch(params, th, tengine.SNNConfig(**kw), imgs,
+                                 backend=backend, device="cpu")
+    for i in range(3):
+        lt, st = tengine.infer(params, th, tengine.SNNConfig(**kw), imgs[i],
+                               backend=backend, device="cpu")
+        assert lt.shape == (10,) and st.overflow.shape == ()
+        assert torch.equal(lt, lb[i])
+        for f in STAT_FIELDS:
+            assert torch.equal(getattr(st, f), getattr(sb, f)[i]), f
+    lj, sj = jengine.infer(
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in params],
+        [jnp.asarray(t) for t in th], jengine.SNNConfig(**kw),
+        jnp.asarray(imgs[2]), backend=backend)
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    for f in STAT_FIELDS:
+        np.testing.assert_array_equal(getattr(st, f).numpy(),
+                                      np.asarray(getattr(sj, f)), err_msg=f)
+
+
+def test_queue_mask_contract_padded_equals_unpadded():
+    params, th = dyadic_net(SPEC, HW, C)
+    cfg = tengine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C, T=3,
+                            mode="mttfs", depth=4, input_mode="binary")
+    imgs = images(4, HW, C, seed=2)
+    padded = imgs.copy()
+    padded[3:] = images(4, HW, C, seed=7)[3:]
+    lp, sp = tengine.infer_batch_masked(params, th, cfg, padded, 3,
+                                        backend="queue", device="cpu")
+    lu, su = tengine.infer_batch(params, th, cfg, imgs[:3], backend="queue",
+                                 device="cpu")
+    assert torch.equal(lp, lu)
+    for f in STAT_FIELDS:
+        assert torch.equal(getattr(sp, f), getattr(su, f)), f
+
+
+def test_available_backends_match_reference():
+    assert set(tengine.available_backends()) == set(
+        jengine.available_backends())
+    assert {"dense", "dense_unrolled", "queue"} <= set(
+        tengine.available_backends())
+
+
+def test_cpu_word_path_never_counts_launches():
+    tops.reset_launch_counts()
+    _port("queue", "mttfs", "binary", None, 2)
+    tops.moe_gather(torch.ones((4, 3)), torch.tensor([0, -1],
+                                                     dtype=torch.int32))
+    assert set(tops.launch_counts) == {
+        "fused_spike_accum", "quant_matmul", "fused_spike_accum_sparse",
+        "event_accum", "spike_compact", "moe_gather"}
+    assert all(v == 0 for v in tops.launch_counts.values())
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers never run a CPU tensor (no silent fallback)."""
+    occ = torch.zeros((2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsc.spike_compact_cuda(occ, n_win=4, bits=2, depth=4, invalid=64)
+    words = torch.zeros((1, 1, 9, 4), dtype=torch.int32)
+    counts = torch.zeros((1, 1, 9), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tea.event_accum_cuda(words, counts, torch.ones((3, 3, 1, 2)),
+                             torch.zeros((1, 10, 10, 2)), K=3, n_win=4,
+                             bits=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmg.moe_gather_cuda(torch.ones((4, 3)),
+                            torch.zeros(2, dtype=torch.int32))
