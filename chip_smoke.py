@@ -12,15 +12,20 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    (one process per source, in parallel) into the git-ignored build dir.
 3. kernels — at the CIFAR-10 serve shapes (bucket 64, T=4): the fused spike
    kernel (B1) on every conv stage's real occupancy, at depth 64 and 256,
-   with the net's Gaussian weights (held to 1e-4) and dyadic weights (held
-   bit-exactly) against its plain PyTorch version; the int8 head kernel (B2)
-   at M in {1, 4, 16, 64}, K=1152, N=10, bit-exactly; the sparse kernel
-   (B3) on the same occupancy at depth 64: fp32 on dyadic weights bit-exact
-   and on Gaussian weights to 1e-4 against its plain version (and
-   bit-exact against B1, whose order of adds it keeps), ``weight_bits=8``
-   bit-exact, and a ragged case (1/8 of the rows active, ``n_rows`` < N)
-   bit-exact and timed beside B1. Each is timed with CUDA events beside its
-   plain version, a library call and its bound.
+   with the net's Gaussian weights held bit-exactly against the (c,
+   phase)-ordered oracle (``ref.fused_spike_accum_ordered_ref``, the order
+   of adds the kernel keeps) and to 1e-4 against its plain PyTorch version,
+   and dyadic weights bit-exactly against both the plain version and the
+   scatter oracle; the int8 head kernel (B2) at M in {1, 4, 16, 64},
+   K=1152, N=10, bit-exactly; the sparse kernel (B3) on the same occupancy
+   at depth 64: fp32 on dyadic weights bit-exact and on Gaussian weights to
+   1e-4 against its plain version, and bit-exact against the ordered oracle
+   and B1; ``weight_bits=8`` bit-exact against its plain version and
+   ``ref.fused_spike_accum_quant_ref``, and against its library yardstick
+   (cuDNN on the integer weights in fp32, times the scale); and a ragged
+   case (1/8 of the rows active, ``n_rows`` < N) bit-exact and timed beside
+   B1. Each is timed with CUDA events beside its plain version, a library
+   call and its bound.
 4. serve   — the full-width CIFAR-10 net (paper Table 6) behind the port's
    ModelRegistry + ServeRuntime on ``queue_pallas``, one fp32 handle and
    one ``weight_bits=8`` handle, loaded as the reference's
@@ -50,7 +55,10 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    full-width net at bucket 64. B5 (queue encoder) on every event-driven
    stage's real occupancy rows, analog and binary input, bit-exact against
    its plain version; B4 (event accumulate) on each stage's real queues at
-   every step, dyadic weights bit-exact and Gaussian ones to 1e-4; B6 (MoE
+   every step, dyadic weights bit-exact and Gaussian ones to 1e-4, and in
+   bf16 at the binary-input stage's first step (from a zero membrane
+   bit-exact against the ordered oracle in bf16; against its bf16 plain
+   version within the worst-case bound of two orders of rounded adds); B6 (MoE
    row gather) at ``benchmarks/kernel_bench.py``'s shape and the test
    shapes, f32 and bf16, bit-exact; each timed beside its plain version, a
    library call where one exists, and its bound. Then
@@ -77,6 +85,7 @@ go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -105,10 +114,11 @@ INT32_OP_PER_S = FP32_FLOP_PER_S / 2
 
 # kernel -> substrings of its CUDA kernels' names in a profiler trace
 KERNEL_NAMES = {
-    "fused_spike_accum": ("fused_spike_accum_kernel",),
+    "fused_spike_accum": ("fused_spike_accum_encode",
+                          "fused_spike_accum_gather"),
     "quant_matmul": ("quant_matmul_kernel",),
-    "fused_spike_accum_sparse": ("sparse_gate_kernel", "sparse_rows_kernel",
-                                 "sparse_accum_kernel"),
+    "fused_spike_accum_sparse": ("sparse_encode_kernel", "sparse_rows_kernel",
+                                 "sparse_gather_kernel"),
     "event_accum": ("event_accum_kernel",),
     "spike_compact": ("spike_compact_kernel",),
     "moe_gather": ("moe_gather_kernel",),
@@ -158,14 +168,17 @@ def device_ms(fn, names, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and any(n in e.key for n in names))
+    for _ in range(3):  # a window now and then comes back without records
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and any(n in e.key for n in names))
+        if total > 0:
+            break
     check(total > 0, f"the profiler saw no kernel named {names}")
     return total / 1e3 / reps
 
@@ -322,8 +335,7 @@ def phase_kernels(stages, last_raster, params, device):
                       W=cp.in_hw)
 
             def kernel(w=w_gauss, kw=kw):
-                return sp.fused_spike_accum_cuda(occ, w, bits=fmt.bits_coord,
-                                                 **kw)
+                return sp.fused_spike_accum_cuda(occ, w, **kw)
 
             def plain(w=w_gauss, kw=kw):
                 return sp.fused_spike_accum_plain(occ, w, **kw)
@@ -336,6 +348,11 @@ def phase_kernels(stages, last_raster, params, device):
             err = float((got - want).abs().max())
             check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
                   f"B1 {name} depth {depth}: Gaussian max |err| {err}")
+            ordered = ref.fused_spike_accum_ordered_ref(occ, w_gauss, **kw)
+            check(torch.equal(got, ordered),
+                  f"B1 {name} depth {depth}: Gaussian weights differ from "
+                  "the (c, phase)-ordered oracle (max |err| "
+                  f"{float((got - ordered).abs().max())})")
             got_dy, want_dy = kernel(w_dy), plain(w_dy)
             oracle = ref.fused_spike_accum_ref(occ, w_dy, **kw)
             check(torch.equal(got_dy, oracle),
@@ -352,14 +369,17 @@ def phase_kernels(stages, last_raster, params, device):
                        C_out=cp.out_c, P=P, depth=depth,
                        events=events, adds=adds, bytes=nbytes,
                        max_abs_err=err, ms=time_ms(kernel),
+                       device_ms=device_ms(kernel,
+                                           KERNEL_NAMES["fused_spike_accum"]),
                        plain_ms=time_ms(plain), library_ms=time_ms(library),
                        bound_ms=b_ms, bound_by=b_by)
             b1_rows.append(row)
             log(f"[kernels] B1 {name:21s} N={row['N']} C_in={cp.in_c} "
                 f"hw={cp.in_hw} C_out={cp.out_c} depth={depth} "
                 f"events={row['events']} adds={adds} | ms {row['ms']:.4f} "
-                f"plain {row['plain_ms']:.4f} library {row['library_ms']:.4f}"
-                f" bound {b_ms:.4f} ({b_by}) | max|err| {err:.3g}")
+                f"(device {row['device_ms']:.4f}) plain {row['plain_ms']:.4f} library {row['library_ms']:.4f}"
+                f" bound {b_ms:.4f} ({b_by}) | max|err| {err:.3g} vs plain, "
+                "== ordered oracle")
 
     # B2: the output head at every bucket, on real spike counts
     w_out = params[-1]["w"]
@@ -429,6 +449,7 @@ def phase_b3(stages, device):
     import torch
 
     from repro_torch.core.quantization import quantize_symmetric
+    from repro_torch.kernels import ref
     from repro_torch.kernels import spike_pipeline as sp
     from repro_torch.kernels import spike_sparse as ss
 
@@ -450,15 +471,14 @@ def phase_b3(stages, device):
 
         def kernel(w=w_gauss, wb=None, o=occ, n_rows=None):
             return ss.fused_spike_accum_sparse_cuda(
-                o, w, bits=fmt.bits_coord, weight_bits=wb, n_rows=n_rows,
-                **kw)
+                o, w, weight_bits=wb, n_rows=n_rows, **kw)
 
         def plain(w=w_gauss, wb=None, o=occ, e_cap=e_cap):
             return ss.fused_spike_accum_sparse_plain(
                 o, w, e_cap=e_cap, weight_bits=wb, **kw)
 
         def b1(w=w_gauss, o=occ):
-            return sp.fused_spike_accum_cuda(o, w, bits=fmt.bits_coord, **kw)
+            return sp.fused_spike_accum_cuda(o, w, **kw)
 
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -468,12 +488,19 @@ def phase_b3(stages, device):
         check(torch.equal(got, b1()),
               f"B3 {name}: Gaussian weights differ from B1 (max |err| "
               f"{float((got - b1()).abs().max())})")
+        ordered = ref.fused_spike_accum_ordered_ref(occ, w_gauss, **kw)
+        check(torch.equal(got, ordered),
+              f"B3 {name}: Gaussian weights differ from the (c, phase)-"
+              "ordered oracle (max |err| "
+              f"{float((got - ordered).abs().max())})")
         got_dy, want_dy = kernel(w_dy), plain(w_dy)
         check(torch.equal(got_dy, want_dy),
               f"B3 {name}: dyadic weights not bit-exact (max |err| "
               f"{float((got_dy - want_dy).abs().max())})")
         got_q, want_q = kernel(wb=8), plain(wb=8)
-        check(torch.equal(got_q, want_q),
+        check(torch.equal(got_q, want_q)
+              and torch.equal(got_q, ref.fused_spike_accum_quant_ref(
+                  occ, w_gauss, weight_bits=8, **kw)),
               f"B3 {name}: weight_bits=8 not bit-exact (max |err| "
               f"{float((got_q - want_q).abs().max())})")
         err_max = max(err_max, err)
@@ -488,11 +515,19 @@ def phase_b3(stages, device):
         check(n_act < N and torch.equal(got_r, want_r),
               f"B3 {name}: ragged n_rows={n_act} of {N} not bit-exact")
 
+        # w8's yardstick: cuDNN on the integers in fp32 (TF32 off), then the
+        # scale: every partial sum is an integer below 9*128*127 < 2^24, so
+        # exact in any order, and the one multiply rounds as B3's does
         w_q, w_scale = quantize_symmetric(w_gauss, 8)
         w_int = w_q.float()
 
         def library_q(w=w_int, scale=w_scale):
             return dropped_conv(occ, cp, w, DEPTH) * scale
+
+        lib_q = library_q().permute(0, 2, 3, 1)
+        check(torch.equal(lib_q, got_q),
+              f"B3 {name}: the w8 yardstick differs from B3 w8 (max |err| "
+              f"{float((lib_q - got_q).abs().max())})")
 
         events, adds, nbytes = stage_work(occ, cp, DEPTH, w_gauss, device)
         ev_r, adds_r, bytes_r = stage_work(occ_r, cp, DEPTH, w_gauss, device)
@@ -502,10 +537,15 @@ def phase_b3(stages, device):
         row = dict(
             stage=name, N=N, C_in=cp.in_c, hw=cp.in_hw, C_out=cp.out_c,
             depth=DEPTH, events=events, adds=adds, bytes=nbytes, e_cap=e_cap,
-            max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+            max_abs_err=err, ms=time_ms(kernel),
+            device_ms=device_ms(kernel,
+                                KERNEL_NAMES["fused_spike_accum_sparse"]),
+            plain_ms=time_ms(plain),
             library_ms=time_ms(lambda: dropped_conv(occ, cp, w_gauss, DEPTH)),
             b1_ms=time_ms(b1), bound_ms=b_ms, bound_by=b_by,
             w8_ms=time_ms(lambda: kernel(wb=8)),
+            w8_device_ms=device_ms(lambda: kernel(wb=8),
+                                   KERNEL_NAMES["fused_spike_accum_sparse"]),
             w8_plain_ms=time_ms(lambda: plain(wb=8)),
             w8_library_ms=time_ms(library_q), w8_bound_ms=bq_ms,
             w8_bound_by=bq_by,
@@ -516,13 +556,14 @@ def phase_b3(stages, device):
         rows.append(row)
         log(f"[kernels] B3 {name:21s} N={N} C_in={cp.in_c} hw={cp.in_hw} "
             f"C_out={cp.out_c} events={events} | fp32 ms {row['ms']:.4f} "
-            f"(B1 {row['b1_ms']:.4f}) plain {row['plain_ms']:.4f} library "
+            f"(device {row['device_ms']:.4f}; B1 {row['b1_ms']:.4f}) plain {row['plain_ms']:.4f} library "
             f"{row['library_ms']:.4f} bound {b_ms:.4f} ({b_by}) | w8 ms "
-            f"{row['w8_ms']:.4f} plain {row['w8_plain_ms']:.4f} library "
+            f"{row['w8_ms']:.4f} (device {row['w8_device_ms']:.4f}) plain {row['w8_plain_ms']:.4f} library "
             f"{row['w8_library_ms']:.4f} bound {bq_ms:.4f} ({bq_by}) | "
             f"ragged {n_act}/{N} rows ms {row['ragged_ms']:.4f} (B1 "
-            f"{row['ragged_b1_ms']:.4f}) | max|err| {err:.3g}, == B1, "
-            "dyadic/w8/ragged bit-exact")
+            f"{row['ragged_b1_ms']:.4f}) | max|err| {err:.3g}, == B1 and "
+            "the ordered oracle, dyadic/w8/ragged bit-exact, w8 library "
+            "equal")
     return rows, err_max
 
 
@@ -577,6 +618,7 @@ def phase_serve(params, device, kind):
     images, _ = make_cifar_like(N_REQUESTS, seed=SEED + 7)
     runtime = ServeRuntime(registry, BucketPolicy(BUCKETS))
     results = {}
+    gc.collect()  # the earlier phases' profiler records, not the serve loop's
 
     ops.reset_launch_counts()                      # the main-path window
     for name in handles:
@@ -897,6 +939,52 @@ def accum_library(words, counts, w, vm, cp):
     return vm + cur.permute(0, 2, 3, 1)
 
 
+def b4_bf16(wt, ct, occ_t, cp, w, vm, kw4):
+    """B4 in bf16 at one step. From a zero membrane it must equal the
+    (c, phase)-ordered oracle in bf16 bit for bit (the same rounded adds in
+    the same order). Against its plain version, which adds offset by
+    offset, it is held to the worst case of two orders: a sum of m terms
+    rounded in bf16 (u = 2^-8) lies within gamma_m * sum|x| of the exact
+    one, gamma_m = m u / (1 - m u), so two orders differ by at most twice
+    that. The stage must give every output fewer than 1/u adds."""
+    import torch
+
+    from repro_torch.kernels import event_accum as ea
+    from repro_torch.kernels import ref
+
+    w16, vm16 = w.bfloat16().contiguous(), vm.bfloat16().contiguous()
+
+    def kernel():
+        return ea.event_accum_cuda(wt, ct, w16, vm16, **kw4)
+
+    def plain():
+        return ea.event_accum_plain(wt, ct, w16, vm16, **kw4)
+
+    got, want = kernel(), plain()
+    adds = ea.event_accum_plain(wt, ct, torch.ones_like(w),
+                                torch.zeros_like(vm), **kw4)
+    abs_sum = ea.event_accum_plain(wt, ct, w16.float().abs(),
+                                   vm16.float().abs(), **kw4)
+    u = 2.0 ** -8
+    check(float(adds.max()) * u < 1, "B4 bf16: too many adds per output "
+          "for the two-order bound")
+    tol = 2 * adds * u / (1 - adds * u) * abs_sum
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= tol).all()),
+          f"B4 bf16: max |err| {float(err.max())} vs the plain version "
+          "exceeds the two-order bound")
+    zero = ea.event_accum_cuda(wt, ct, w16, torch.zeros_like(vm16), **kw4)
+    ordered = ref.fused_spike_accum_ordered_ref(
+        occ_t, w16, K=cp.kernel, n_win=cp.fmt.n_win, depth=DEPTH,
+        H=cp.in_hw, W=cp.in_hw)
+    check(torch.equal(zero, ordered),
+          "B4 bf16: differs from the ordered oracle (max |err| "
+          f"{float((zero.float() - ordered.float()).abs().max())})")
+    return dict(bf16_ms=time_ms(kernel), bf16_plain_ms=time_ms(plain),
+                bf16_max_abs_err=float(err.max()),
+                bf16_tol_max=float(tol.max()))
+
+
 def phase_word_kernels(stages, device):
     """B5 and B4 on every event-driven stage's real activity at bucket 64
     (T=4, depth 64): B5 over the stage's B*T*C*K2 occupancy rows, B4 on the
@@ -994,6 +1082,15 @@ def phase_word_kernels(stages, device):
                         plain_ms=time_ms(accum_plain),
                         library_ms=time_ms(library), bound_ms=b_ms,
                         bound_by=b_by)
+            if name.startswith("conv0") and t == 0:
+                row4.update(b4_bf16(wt, ct, occ.reshape(B, T, C, K2, P)[:, t],
+                                    cp, w_gauss, vm_g, kw4))
+                log(f"[word] B4 bf16 {name} t=0 | ms {row4['bf16_ms']:.4f} "
+                    f"(fp32 {row4['ms']:.4f}) plain "
+                    f"{row4['bf16_plain_ms']:.4f} | max|err| vs plain "
+                    f"{row4['bf16_max_abs_err']:.3g} within the two-order "
+                    f"bound (max {row4['bf16_tol_max']:.3g}); from a zero "
+                    "membrane == the ordered oracle in bf16")
             b4_rows.append(row4)
         per = [r for r in b4_rows if r["stage"] == name]
         log(f"[word] B4 {name:21s} N={B} C_in={C} hw={cp.in_hw} C_out="

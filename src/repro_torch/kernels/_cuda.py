@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds. All sources build in parallel, one
-``nvcc`` each. Libraries are named by the hash of their source and land in
-``<package>/build/`` (git-ignored), so an edited source rebuilds and an
-unchanged one is reused.
+``nvcc`` each, with ``csrc/`` on the include path for the shared headers
+(``*.cuh``). Libraries are named by the hash of their source and of every
+header, and land in ``<package>/build/`` (git-ignored), so an edited source
+or header rebuilds and an unchanged one is reused.
 
 ``launch_counts`` holds one plain integer per kernel; each kernel wrapper
 adds one exactly where it launches its kernel, and nowhere else.
@@ -50,9 +51,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by the hash of the source,
+    every shared header ``csrc/*.cuh`` (sorted) and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict[str, Path]:
@@ -66,7 +71,8 @@ def build_all() -> dict[str, Path]:
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
     for name, (proc, tmp) in procs.items():

@@ -3,7 +3,8 @@
 Port of ``repro.kernels.event_accum``, with a leading row axis N (the
 samples of a batch): both functions add every live queued event of packed
 AE words ``words`` (N, C_in, K², D) int32 with ``counts`` (N, C_in, K²) into
-the membrane ``v_mem`` (N, H, W, C_out) fp32 — an event of channel ``c`` at
+the membrane ``v_mem`` (N, H, W, C_out) — fp32, or bf16 with bf16
+weights and every add rounded to bf16 — an event of channel ``c`` at
 (y, x) adds ``w[dy, dx, c, :]`` to output (y - dy + K//2, x - dx + K//2)
 for every in-bounds offset. Slot ``d`` of queue (c, ph) is live when its
 window row decodes below ``n_win`` and ``d < counts[c, ph]``, as in the TPU
@@ -43,9 +44,27 @@ def _live_events(words, counts, K, n_win, bits):
     return n, c, y, x
 
 
+def _add_rows_each_rounded(out, target, rows):
+    """``out[target[i]] += rows[i]`` in order of i, every add rounded to
+    ``out``'s dtype. On the CPU ``index_add_`` sums a bf16 row's repeated
+    targets in a wider type; here the k-th add to each target goes in round
+    k, so no round repeats a target and each add is one rounded bf16 add."""
+    key, perm = torch.sort(target, stable=True)
+    idx = torch.arange(key.numel(), device=key.device)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    start = torch.cummax(torch.where(first, idx, 0), dim=0).values
+    rank = torch.empty_like(idx)
+    rank[perm] = idx - start
+    for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+        sel = rank == k
+        out[target[sel]] = out[target[sel]] + rows[sel]
+
+
 def event_accum_plain(words, counts, weights, v_mem, *, K, n_win, bits):
-    """Decode the live slots, then K*K ``index_add_`` passes, one per
-    kernel offset, into a copy of the membrane."""
+    """Decode the live slots, then K*K passes, one per kernel offset, into
+    a copy of the membrane: ``index_add_`` in fp32; in bf16 every add is
+    rounded to bf16, as the TPU kernel's ``cur + w`` is."""
     N, H, W, C_out = v_mem.shape
     n, c, y, x = _live_events(words, counts, K, n_win, bits)
     out = v_mem.reshape(N * H * W, C_out).clone()
@@ -55,14 +74,18 @@ def event_accum_plain(words, counts, weights, v_mem, *, K, n_win, bits):
             ty = y - dy + pad
             tx = x - dx + pad
             ok = (ty >= 0) & (ty < H) & (tx >= 0) & (tx < W)
-            out.index_add_(0, ((n * H + ty) * W + tx)[ok],
-                           weights[dy, dx][c[ok]].to(out.dtype))
+            target = ((n * H + ty) * W + tx)[ok]
+            rows = weights[dy, dx][c[ok]].to(out.dtype)
+            if out.dtype == torch.float32:
+                out.index_add_(0, target, rows)
+            else:
+                _add_rows_each_rounded(out, target, rows)
     return out.reshape(N, H, W, C_out)
 
 
 _TILE = 32             # output channels per block (kTile in the source)
 _SMEM_MAX = 232_448    # shared memory one Hopper block may opt in to
-_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 11
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 12
              + (ctypes.c_void_p,))
 
 
@@ -77,11 +100,11 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits):
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("event_accum_cuda needs every operand on the same "
                          "CUDA device")
-    if v_mem.dtype != torch.float32 or weights.dtype != torch.float32:
+    if (v_mem.dtype not in (torch.float32, torch.bfloat16)
+            or weights.dtype != v_mem.dtype):
         raise ValueError(
-            f"event_accum_cuda accumulates in float32 only, got v_mem "
-            f"{v_mem.dtype} and weights {weights.dtype}: there is no "
-            "bfloat16 kernel yet")
+            f"event_accum_cuda takes v_mem and weights both float32 or both "
+            f"bfloat16, got {v_mem.dtype} and {weights.dtype}")
     if words.dtype != torch.int32 or counts.dtype != torch.int32:
         raise TypeError("words and counts must be int32")
     N, C_in, K2, D = words.shape
@@ -95,7 +118,7 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits):
                          f"{tuple(counts.shape)}, weights "
                          f"{tuple(weights.shape)}, v_mem "
                          f"{tuple(v_mem.shape)}, K={K}")
-    smem = 4 * H * W * _TILE
+    smem = v_mem.element_size() * H * W * _TILE
     if smem > _SMEM_MAX:
         raise ValueError(f"a {H}x{W} membrane needs {smem} bytes of shared "
                          f"memory per block; the kernel has {_SMEM_MAX}")
@@ -111,6 +134,6 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits):
     err = fn(words.data_ptr(), counts.data_ptr(), weights.data_ptr(),
              v_mem.data_ptr(), out.data_ptr(), N, words.stride(0),
              counts.stride(0), C_in, K, D, n_win, bits, H, W, C_out,
-             _cuda.stream_ptr(dev))
+             int(v_mem.dtype == torch.bfloat16), _cuda.stream_ptr(dev))
     _cuda.check_launch(err, "event_accum")
     return out

@@ -40,8 +40,8 @@ def fused_spike_accum(occ, weights, *, K, n_win, bits, depth, H, W,
     if impl == "sparse":
         if occ.device.type == "cuda":
             return fused_spike_accum_sparse_cuda(
-                occ, weights, K=K, n_win=n_win, bits=bits, depth=depth, H=H,
-                W=W, n_rows=n_rows, weight_bits=weight_bits)
+                occ, weights, K=K, n_win=n_win, depth=depth, H=H, W=W,
+                n_rows=n_rows, weight_bits=weight_bits)
         if e_cap is None:
             raise ValueError("impl='sparse' on the CPU needs an e_cap event "
                              "budget (see spike_sparse.event_bucket)")
@@ -56,7 +56,7 @@ def fused_spike_accum(occ, weights, *, K, n_win, bits, depth, H, W,
                          "path (use impl='sparse' or 'ref')")
     if occ.device.type == "cuda":
         return fused_spike_accum_cuda(occ, weights, K=K, n_win=n_win,
-                                      bits=bits, depth=depth, H=H, W=W)
+                                      depth=depth, H=H, W=W)
     return fused_spike_accum_plain(occ, weights, K=K, n_win=n_win,
                                    depth=depth, H=H, W=W)
 

@@ -56,6 +56,46 @@ def fused_spike_accum_ref(occ, weights, *, K, n_win, depth, H, W):
     return out.reshape(N, H, W, C_out)
 
 
+def fused_spike_accum_ordered_ref(occ, weights, *, K, n_win, depth, H, W):
+    """The fused accumulate with the (c, phase) order of adds of B1 and B3.
+
+    Applies the drop rule, then for c ascending and phase ascending adds
+    queue (c, phase)'s kept events into every output they reach, one
+    ``torch.where(hit, w, 0)`` at a time, in the weights' dtype. The
+    phase interlacing puts, in each output's K x K window, exactly one
+    position of each phase, so an output takes at most one weight per
+    queue: this is the exact sequence of adds, from 0, that the gather
+    kernels perform for each output (adding 0 changes no partial sum).
+    """
+    N, C_in, K2, P = occ.shape
+    fired = occ > 0
+    slot = torch.cumsum(fired.to(torch.int32), dim=-1) - 1
+    kept = (fired & (slot < depth)).reshape(N, C_in, K2, n_win, n_win)
+    dev, pad, side = occ.device, K // 2, n_win * K
+    out = torch.zeros((N, H, W, weights.shape[-1]), dtype=weights.dtype,
+                      device=dev)
+    zero = torch.zeros((), dtype=weights.dtype, device=dev)
+
+    def window(t, k):
+        """Per output coordinate: the offset d and window index of the one
+        input coordinate of phase k in its window, and whether it exists."""
+        d = (k - t + pad) % K
+        src = t - pad + d
+        return d, torch.clamp(src, 0, side - 1) // K, (src >= 0) & (src < side)
+
+    ty = torch.arange(H, device=dev)
+    tx = torch.arange(W, device=dev)
+    for c in range(C_in):
+        for ph in range(K2):
+            dy, wy, oky = window(ty, ph // K)
+            dx, wx, okx = window(tx, ph % K)
+            hit = (kept[:, c, ph][:, wy][:, :, wx]
+                   & oky[:, None] & okx[None, :])          # (N, H, W)
+            w = weights[dy[:, None], dx[None, :], c]         # (H, W, C_out)
+            out = out + torch.where(hit[..., None], w, zero)
+    return out
+
+
 def fused_spike_accum_quant_ref(occ, weights, *, K, n_win, depth, H, W,
                                 weight_bits=8):
     """Quantized-weight variant of :func:`fused_spike_accum_ref`.

@@ -6,12 +6,13 @@ fused pipeline (``spike_pipeline``) computes — for occupancy ``occ``
 (N, H, W, C_out) fp32 charge of the events that survive a depth-``depth``
 queue per (row, channel, phase) — with work that drops with the spike rate,
 and optionally an int-quantized accumulate (``weight_bits``: int8 weights,
-exact int32 sums, one fp32 dequant):
+exact integer sums, one fp32 dequant):
 
 - :func:`fused_spike_accum_sparse_cuda` — the CUDA kernel
   ``csrc/spike_sparse.cu`` (replaces the Pallas TPU kernel
-  ``fused_spike_accum_sparse_pallas``): per-cell gates and the ragged
-  ``n_rows`` grid of active rows;
+  ``fused_spike_accum_sparse_pallas``): the kept bits with per-cell gates,
+  an active-first row order, and B1's gather (``csrc/spike_accum.cuh``)
+  over the first ``n_rows`` rows;
 - :func:`fused_spike_accum_sparse_plain` — the event-list realization
   ``fused_spike_accum_sparse``: the drop rule, a prefix-sum compaction
   into an ``e_cap``-slot list in the oracle's flattened
@@ -30,6 +31,7 @@ import torch
 
 from ..core.quantization import quantize_symmetric
 from . import _cuda
+from .spike_pipeline import check_gather_fits, kept_bit_words
 
 
 # ---------------------------------------------------------------------------
@@ -131,14 +133,12 @@ def fused_spike_accum_sparse_plain(occ, weights, *, K, n_win, depth, H, W,
 # The Hopper kernel
 # ---------------------------------------------------------------------------
 
-_TILE = 32             # output channels per block (kTile in the source)
-_SMEM_MAX = 232_448    # shared memory one Hopper block may opt in to
-_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 11
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10
              + (ctypes.c_void_p,))
 
 
-def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, bits, depth, H,
-                                  W, n_rows=None, weight_bits=None):
+def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, depth, H, W,
+                                  n_rows=None, weight_bits=None):
     """Launch ``csrc/spike_sparse.cu`` on the current stream.
 
     ``n_rows`` (default N) must be at least the number of rows with any
@@ -153,8 +153,7 @@ def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, bits, depth, H,
         raise TypeError(f"expected int32 occupancy and float32 weights, got "
                         f"{occ.dtype} and {weights.dtype}")
     N, C_in, K2, P = occ.shape
-    if K not in (1, 3, 5, 7):
-        raise ValueError(f"the kernel is built for K in (1, 3, 5, 7), got {K}")
+    check_gather_fits(K, n_win, H, W)
     if (K2 != K * K or P != n_win * n_win
             or tuple(weights.shape[:3]) != (K, K, C_in)):
         raise ValueError(f"shape mismatch: occ {tuple(occ.shape)}, weights "
@@ -164,13 +163,12 @@ def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, bits, depth, H,
     if weight_bits is not None and not 2 <= weight_bits <= 8:
         raise ValueError(f"the int path takes int8 weights: weight_bits in "
                          f"[2, 8], got {weight_bits}")
+    if weight_bits is not None and K * K * C_in * 127 >= 2 ** 24:
+        raise ValueError(f"the int path sums K*K*C_in = {K * K * C_in} "
+                         "int8 weights exactly in fp32 only below 2^24")
     n_rows = N if n_rows is None else int(n_rows)
     if not 0 <= n_rows <= N:
         raise ValueError(f"n_rows must be in [0, {N}], got {n_rows}")
-    smem = 4 * (H * W * _TILE + K2 * min(depth, P) + K2)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"a {H}x{W} charge map needs {smem} bytes of shared "
-                         f"memory per block; the kernel has {_SMEM_MAX}")
     C_out = weights.shape[-1]
     dev = occ.device
     # rows past n_rows are never launched: their output stays zeros
@@ -179,20 +177,22 @@ def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, bits, depth, H,
     if N == 0:
         return out
     if weight_bits is not None:
+        # the integers in fp32: every partial sum is an integer below 2^24,
+        # so each add is exact and the sum is the int32 one
         w_use, w_scale = quantize_symmetric(weights, weight_bits)
-        w_use = w_use.contiguous()
+        w_use = w_use.to(torch.float32).contiguous()
         scale_ptr = w_scale.data_ptr()
     else:
         w_use, scale_ptr = weights, None
-    # gate scratch: cell totals and fill bounds (N*C_in each), row
-    # activity and the active-first row order (N each)
-    scratch = torch.empty(2 * N * C_in + 2 * N, dtype=torch.int32,
-                          device=dev)
+    # kept bits, cell totals (N*C_in), row activity and the active-first
+    # row order (N each)
+    scratch = torch.empty(kept_bit_words(occ.shape) + N * C_in + 2 * N,
+                          dtype=torch.int32, device=dev)
     fn = _cuda.kernel_fn("spike_sparse", "fused_spike_accum_sparse",
                          _ARGTYPES)
     _cuda.launch_counts["fused_spike_accum_sparse"] += 1
     err = fn(occ.data_ptr(), w_use.data_ptr(), scale_ptr, scratch.data_ptr(),
-             out.data_ptr(), N, n_rows, C_in, K, n_win, bits, depth, H, W,
-             C_out, int(weight_bits is not None), _cuda.stream_ptr(dev))
+             out.data_ptr(), N, n_rows, C_in, K, n_win, depth, H, W, C_out,
+             int(weight_bits is not None), _cuda.stream_ptr(dev))
     _cuda.check_launch(err, "fused_spike_accum_sparse")
     return out

@@ -140,18 +140,78 @@ def test_sparse_kernel_matches_plain(cuda, hw, c_in, c_out, depth):
     assert torch.equal(got, ss.fused_spike_accum_sparse_plain(
         occ, w_dy, e_cap=e_cap, **kw))
     for wb in (8, 4):
-        got = ss.fused_spike_accum_sparse_cuda(occ, w_g, bits=fmt.bits_coord,
-                                               weight_bits=wb, **kw)
+        got = ss.fused_spike_accum_sparse_cuda(occ, w_g, weight_bits=wb, **kw)
         assert torch.equal(got, ss.fused_spike_accum_sparse_plain(
             occ, w_g, e_cap=e_cap, weight_bits=wb, **kw))
         assert torch.equal(got, ref.fused_spike_accum_quant_ref(
             occ, w_g, weight_bits=wb, **kw))
-    got = ss.fused_spike_accum_sparse_cuda(occ, w_g, bits=fmt.bits_coord,
-                                           **kw)
+    got = ss.fused_spike_accum_sparse_cuda(occ, w_g, **kw)
     want = ss.fused_spike_accum_sparse_plain(occ, w_g, e_cap=e_cap, **kw)
     assert torch.allclose(got, want, atol=1e-4, rtol=1e-4)
-    assert torch.equal(got, sp.fused_spike_accum_cuda(
-        occ, w_g, bits=fmt.bits_coord, **kw))
+    assert torch.equal(got, sp.fused_spike_accum_cuda(occ, w_g, **kw))
+
+
+GATHER_SHAPES = (  # (hw, c_in, c_out, depth, K): B1_SHAPES, other K, 64x64
+    [(*shape, 3) for shape in B1_SHAPES]
+    + [(9, 2, 8, 4, 1), (10, 3, 40, 64, 1), (11, 2, 8, 3, 5),
+       (20, 3, 16, 64, 5), (14, 2, 8, 2, 7), (28, 3, 40, 64, 7),
+       (64, 32, 32, 64, 3), (64, 32, 32, 16, 3)])
+
+
+def _gather_inputs(cuda, hw, c_in, c_out, K, n, seed):
+    rng = np.random.default_rng(seed)
+    raster = torch.from_numpy(
+        (rng.random((n, hw, hw, c_in)) < 0.25).astype(np.float32)).to(cuda)
+    fmt = make_format(hw, K)
+    w = torch.from_numpy(
+        rng.normal(size=(K, K, c_in, c_out)).astype(np.float32)).to(cuda)
+    return fmt, phase_occupancy(fmt, raster).contiguous(), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c_in,c_out,depth,K", GATHER_SHAPES)
+def test_gather_kernels_match_ordered_oracle(cuda, hw, c_in, c_out, depth,
+                                             K):
+    """B1 and B3 on Gaussian weights equal the (c, phase)-ordered oracle bit
+    for bit (the order of adds the mask contract and B3 == B1 rest on), and
+    B3's int path equals the quantized oracle, at K in {1, 3, 5, 7}, depth
+    < P and a 64x64 map (whose charge map no block could hold)."""
+    n = 2 if hw == 64 else 3
+    fmt, occ, w = _gather_inputs(cuda, hw, c_in, c_out, K, n, hw + depth + K)
+    kw = dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+    want = ref.fused_spike_accum_ordered_ref(occ, w, **kw)
+    b1 = sp.fused_spike_accum_cuda(occ, w, **kw)
+    b3 = ss.fused_spike_accum_sparse_cuda(occ, w, **kw)
+    q = ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(b1, want) and torch.equal(b3, want)
+    assert torch.equal(q, ref.fused_spike_accum_quant_ref(
+        occ, w, weight_bits=8, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_act", [0, 1, 2])
+@pytest.mark.parametrize("weight_bits", [None, 8])
+def test_gather_sparse_ragged_rows_match_oracles(cuda, n_act, weight_bits):
+    """B3 over N = 16 rows of which n_act in {0, 1, N/8} hold events, with
+    n_rows = n_act: bit-exact against the ordered oracle (fp32) or the
+    quantized one (int path); the idle rows are exact zeros."""
+    hw, c_in, c_out, depth = 12, 3, 40, 16
+    fmt, occ, w = _gather_inputs(cuda, hw, c_in, c_out, 3, 16, 7 + n_act)
+    keep = torch.zeros(16, dtype=torch.bool, device=cuda)
+    keep[[5, 11][:n_act]] = True
+    occ = (occ * keep[:, None, None, None]).contiguous()
+    kw = dict(K=3, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+    got = ss.fused_spike_accum_sparse_cuda(
+        occ, w, n_rows=n_act, weight_bits=weight_bits, **kw)
+    torch.cuda.synchronize()
+    if weight_bits is None:
+        want = ref.fused_spike_accum_ordered_ref(occ, w, **kw)
+    else:
+        want = ref.fused_spike_accum_quant_ref(occ, w,
+                                               weight_bits=weight_bits, **kw)
+    assert torch.equal(got, want)
+    assert not got[~keep].any()
 
 
 @pytest.mark.cuda
@@ -171,16 +231,14 @@ def test_sparse_kernel_ragged_rows(cuda, weight_bits):
         weight_bits=weight_bits, **kw)
     for n_rows in (3, 8):
         got = ss.fused_spike_accum_sparse_cuda(
-            occ, w_dy, bits=fmt.bits_coord, n_rows=n_rows,
-            weight_bits=weight_bits, **kw)
+            occ, w_dy, n_rows=n_rows, weight_bits=weight_bits, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert not got[~keep].any()
     empty = torch.zeros_like(occ)
     for n_rows in (0, 8):
         got = ss.fused_spike_accum_sparse_cuda(
-            empty, w_dy, bits=fmt.bits_coord, n_rows=n_rows,
-            weight_bits=weight_bits, **kw)
+            empty, w_dy, n_rows=n_rows, weight_bits=weight_bits, **kw)
         assert not got.any()
 
 
@@ -326,14 +384,53 @@ def test_event_accum_kernel_matches_plain(cuda, hw, c_in, c_out, depth):
 
 
 @pytest.mark.cuda
-def test_event_accum_kernel_refuses_bf16(cuda):
-    words = torch.zeros((1, 1, 9, 4), dtype=torch.int32, device=cuda)
-    counts = torch.zeros((1, 1, 9), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
-        ea.event_accum_cuda(
-            words, counts, torch.ones((3, 3, 1, 2), device=cuda),
-            torch.zeros((1, 12, 12, 2), dtype=torch.bfloat16, device=cuda),
-            K=3, n_win=4, bits=3)
+@pytest.mark.parametrize("hw,c_in,c_out,depth", B4_SHAPES)
+def test_event_accum_kernel_bf16(cuda, hw, c_in, c_out, depth):
+    """B4 in bf16. Weights and membrane on a 1/4 grid (|w| <= 1, |v| <=
+    2, at most 36 adds) keep every partial sum within bf16's 8 bits, so the
+    kernel equals the bf16 plain version bit for bit. On Gaussian weights
+    the two add in other orders; each order's rounded sum of m terms lies
+    within gamma_m * sum|x| of the exact one (u = 2^-8, gamma_m = m u / (1
+    - m u)), so they are held to twice that. From a zero membrane the
+    kernel equals the (c, phase)-ordered oracle in bf16 bit for bit."""
+    rng = np.random.default_rng(hw * depth + c_in + 1)
+    raster = torch.from_numpy((rng.random((3, 2, c_in, hw, hw)) < 0.2)
+                              .astype(np.float32)).to(cuda)
+    fmt = make_format(hw, 3)
+    q = aeq.aeq_from_raster_batch(fmt, raster, depth)
+    words, counts = q.words[:, 1], q.counts[:, 1]      # strided rows
+    kw = dict(K=3, n_win=fmt.n_win, bits=fmt.bits_coord)
+    w_q = torch.from_numpy((rng.integers(-4, 5, (3, 3, c_in, c_out)) / 4.0)
+                           .astype(np.float32)).to(cuda).bfloat16()
+    vm_q = torch.from_numpy((rng.integers(-8, 9, (3, hw, hw, c_out)) / 4.0)
+                            .astype(np.float32)).to(cuda).bfloat16()
+    ops.reset_launch_counts()
+    got = ops.event_accum(words, counts, w_q, vm_q, **kw)
+    assert ops.launch_counts["event_accum"] == 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ea.event_accum_plain(words, counts, w_q, vm_q,
+                                                 **kw))
+    w_g = torch.from_numpy(rng.normal(size=(3, 3, c_in, c_out))
+                           .astype(np.float32)).to(cuda)
+    vm_g = torch.from_numpy(rng.normal(size=(3, hw, hw, c_out))
+                            .astype(np.float32)).to(cuda)
+    w16, vm16 = w_g.bfloat16(), vm_g.bfloat16()
+    got = ea.event_accum_cuda(words, counts, w16, vm16, **kw)
+    want = ea.event_accum_plain(words, counts, w16, vm16, **kw)
+    m = ea.event_accum_plain(words, counts, torch.ones_like(w_g),
+                             torch.zeros_like(vm_g), **kw)
+    abs_sum = ea.event_accum_plain(words, counts, w16.float().abs(),
+                                   vm16.float().abs(), **kw)
+    u = 2.0 ** -8
+    assert float(m.max()) * u < 1
+    tol = 2 * m * u / (1 - m * u) * abs_sum
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    zero = ea.event_accum_cuda(words, counts, w16, torch.zeros_like(vm16),
+                               **kw)
+    occ = phase_occupancy(fmt, raster[:, 1].permute(0, 2, 3, 1))
+    assert torch.equal(zero, ref.fused_spike_accum_ordered_ref(
+        occ, w16, K=3, n_win=fmt.n_win, depth=depth, H=hw, W=hw))
 
 
 @pytest.mark.cuda

@@ -29,20 +29,20 @@ B2_SHAPES = [(16, 32, 8), (100, 200, 60), (128, 128, 128), (130, 257, 64),
              (64, 1152, 10)]
 
 
-def _occ_weights(hw, c_in, c_out, depth, dyadic, T=3):
-    rng = np.random.default_rng(hw * 100 + c_in * 10 + depth)
+def _occ_weights(hw, c_in, c_out, depth, dyadic, T=3, K=3):
+    rng = np.random.default_rng(hw * 100 + c_in * 10 + depth + K)
     raster = (rng.random((T, hw, hw, c_in)) < 0.25).astype(np.float32)
-    fmt = jenc.make_format(hw, 3)
+    fmt = jenc.make_format(hw, K)
     occ = np.array(jaeq.phase_occupancy(fmt, jnp.asarray(raster)))
     if dyadic:
-        w = rng.integers(-128, 128, (3, 3, c_in, c_out)) / 256.0
+        w = rng.integers(-128, 128, (K, K, c_in, c_out)) / 256.0
     else:
-        w = rng.normal(size=(3, 3, c_in, c_out))
+        w = rng.normal(size=(K, K, c_in, c_out))
     return fmt, occ, w.astype(np.float32)
 
 
-def _b1_kw(fmt, hw, depth):
-    return dict(K=3, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+def _b1_kw(fmt, hw, depth, K=3):
+    return dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
 
 
 @pytest.mark.parametrize("hw,c_in,c_out,depth", B1_SHAPES)
@@ -72,6 +72,48 @@ def test_fused_spike_accum_plain_matches_reference(hw, c_in, c_out, depth,
         else:
             np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4,
                                        err_msg=name)
+
+
+@pytest.mark.parametrize("K", [1, 3, 5])
+@pytest.mark.parametrize("hw,c_in,c_out,depth", B1_SHAPES)
+def test_ordered_oracle_matches_reference(hw, c_in, c_out, depth, K):
+    """The (c, phase)-ordered oracle — the sequence of adds B1 and B3
+    perform — equals both scatter oracles bit for bit on dyadic weights and
+    the JAX fused_spike_accum_xla within 1e-5 on Gaussian ones, depth < P
+    drops and K in {1, 3, 5} included."""
+    fmt, occ, w = _occ_weights(hw, c_in, c_out, depth, dyadic=True, K=K)
+    kw = _b1_kw(fmt, hw, depth, K)
+    got = tref.fused_spike_accum_ordered_ref(
+        torch.from_numpy(occ), torch.from_numpy(w), **kw).numpy()
+    np.testing.assert_array_equal(got, tref.fused_spike_accum_ref(
+        torch.from_numpy(occ), torch.from_numpy(w), **kw).numpy())
+    np.testing.assert_array_equal(got, np.asarray(jref.fused_spike_accum_ref(
+        jnp.asarray(occ), jnp.asarray(w), **kw)))
+    _, _, w_g = _occ_weights(hw, c_in, c_out, depth, dyadic=False, K=K)
+    got = tref.fused_spike_accum_ordered_ref(
+        torch.from_numpy(occ), torch.from_numpy(w_g), **kw).numpy()
+    want = np.asarray(jops.fused_spike_accum(
+        jnp.asarray(occ), jnp.asarray(w_g), impl="xla", bits=fmt.bits_coord,
+        invalid=fmt.invalid_word, **kw))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_ordered_oracle_adds_in_channel_then_phase_order():
+    """One output, three events: c=0 phase 0, c=0 phase 4, c=1 phase 0.
+    Weights 1, 2^-24 and 2^-24 give 1 + 2^-24 + 2^-24 = 1 in fp32 when
+    added in that order, but 1 + 2^-23 in any order that sums the small
+    ones first — so the result pins the order."""
+    occ = torch.zeros((1, 2, 9, 1), dtype=torch.int32)
+    occ[0, 0, 0] = occ[0, 0, 4] = occ[0, 1, 0] = 1
+    w = torch.zeros((3, 3, 2, 1))
+    # output (1, 1) sees the phase-0 event (0, 0) through offset (0, 0)
+    # and the phase-4 event (1, 1) through offset (1, 1)
+    w[0, 0, 0] = 1.0
+    w[1, 1, 0] = 2.0 ** -24
+    w[0, 0, 1] = 2.0 ** -24
+    out = tref.fused_spike_accum_ordered_ref(occ, w, K=3, n_win=1, depth=4,
+                                             H=3, W=3)
+    assert out[0, 1, 1, 0].item() == 1.0
 
 
 def test_fused_spike_accum_drops_follow_segment_keep():
@@ -128,12 +170,28 @@ def test_cpu_dispatch_never_counts_launches():
                                   "moe_gather": 0}
 
 
+def test_lib_path_hashes_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared header renames every library, so a stale build
+    that included the old header is never reused."""
+    from repro_torch.kernels import _cuda
+
+    for f in _cuda.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    before = {n: _cuda._lib_path(n) for n in _cuda.SOURCES}
+    header = tmp_path / "spike_accum.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _cuda._lib_path(n) for n in _cuda.SOURCES}
+    assert all(before[n] != after[n] for n in _cuda.SOURCES)
+    assert _cuda._lib_path("spike_pipeline") == after["spike_pipeline"]
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers never run a CPU tensor (no silent fallback)."""
     fmt, occ, w = _occ_weights(9, 1, 8, 16, dyadic=True)
     with pytest.raises(ValueError, match="CUDA"):
         tsp.fused_spike_accum_cuda(torch.from_numpy(occ), torch.from_numpy(w),
-                                   bits=fmt.bits_coord, **_b1_kw(fmt, 9, 16))
+                                   **_b1_kw(fmt, 9, 16))
     a = torch.ones((4, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
         tqm.quant_matmul_cuda(a, a.T.contiguous(), torch.tensor(1.0),

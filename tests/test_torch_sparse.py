@@ -191,7 +191,7 @@ def test_dispatch_errors():
     with pytest.raises(ValueError, match="impl"):
         tops.fused_spike_accum(t_occ, t_w, impl="sparse_pallas", **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        tss.fused_spike_accum_sparse_cuda(t_occ, t_w, **kw)
+        tss.fused_spike_accum_sparse_cuda(t_occ, t_w, **_kw(fmt, 9, 16))
 
 
 # ---------------------------------------------------------------------------

@@ -292,6 +292,48 @@ def test_event_accum_plain_matches_oracle_batched(hw, c_in, c_out, depth):
         assert torch.equal(one, got[n])
 
 
+def test_event_accum_plain_bf16_matches_reference():
+    """B4's plain version in bf16 against the JAX oracle in fp32, with the
+    inputs and the tolerance of tests/test_kernels.py's bf16 event_accum
+    test (atol 0.1: each bf16 add rounds to 8 significant bits)."""
+    fmt = jenc.make_format(12, 3)
+    rng = np.random.default_rng(0)
+    raster = (rng.random((1, 2, 12, 12)) < 0.2).astype(np.float32)
+    q = jaeq.aeq_from_raster(fmt, jnp.asarray(raster), 32)
+    w = rng.normal(size=(3, 3, 2, 8)).astype(np.float32)
+    w_bf16 = np.asarray(jnp.asarray(w, jnp.bfloat16).astype(jnp.float32))
+    kw = dict(K=3, n_win=fmt.n_win, bits=fmt.bits_coord)
+    want = np.asarray(jref.event_accum_ref(
+        q.words[0], q.counts[0], jnp.asarray(w_bf16),
+        jnp.zeros((12, 12, 8), jnp.float32), **kw))
+    got = tops.event_accum(
+        torch.from_numpy(np.array(q.words[0])),
+        torch.from_numpy(np.array(q.counts[0])),
+        torch.from_numpy(w_bf16).bfloat16(),
+        torch.zeros((12, 12, 8), dtype=torch.bfloat16), **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.1)
+
+
+def test_event_accum_plain_bf16_rounds_every_add():
+    """Four channels each add 1 to a membrane of 256: in bf16 every add
+    rounds 257 back to 256 (a tie, to even), as the TPU kernel's `cur + w`
+    does; a sum carried in a wider type would give 260."""
+    ft = tenc.make_format(12, 3)
+    words = torch.full((1, 4, 9, 1), ft.invalid_word, dtype=torch.int32)
+    words[0, :, 0, 0] = 0                       # window (0, 0), phase 0
+    counts = torch.zeros((1, 4, 9), dtype=torch.int32)
+    counts[0, :, 0] = 1
+    vm = torch.full((1, 12, 12, 2), 256.0, dtype=torch.bfloat16)
+    w = torch.ones((3, 3, 4, 2), dtype=torch.bfloat16)
+    out = tea.event_accum_plain(words, counts, w, vm, K=3, n_win=ft.n_win,
+                                bits=ft.bits_coord)
+    assert torch.equal(out, vm)
+    wide = tea.event_accum_plain(words, counts, w.float(), vm.float(), K=3,
+                                 n_win=ft.n_win, bits=ft.bits_coord)
+    assert wide[0, 0, 0, 0].item() == 260.0
+
+
 def test_event_accum_count_kills_uncompressed_invalid_words():
     """hw=10 has n_win = 4 and no spare pattern: the invalid word decodes to
     window row 0, so only the count may kill a slot (as the TPU kernel)."""
