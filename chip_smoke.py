@@ -54,11 +54,14 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
 6. word    — the word-level ``queue`` path and the ``dense`` backends on the
    full-width net at bucket 64. B5 (queue encoder) on every event-driven
    stage's real occupancy rows, analog and binary input, bit-exact against
-   its plain version; B4 (event accumulate) on each stage's real queues at
-   every step, dyadic weights bit-exact and Gaussian ones to 1e-4, and in
-   bf16 at the binary-input stage's first step (from a zero membrane
-   bit-exact against the ordered oracle in bf16; against its bf16 plain
-   version within the worst-case bound of two orders of rounded adds); B6 (MoE
+   its plain version; B4 (event accumulate: decode + gather) on each
+   stage's real queues at every step, Gaussian weights bit-exact against the
+   (c, phase)-ordered oracle started from the membrane and to 1e-4 against
+   its plain version, dyadic weights bit-exact against the plain version,
+   and in bf16 at the binary-input stage's first step (bit-exact against
+   the ordered oracle in bf16, from the membrane and from zero; against its
+   bf16 plain version within the worst-case bound of two orders of rounded
+   adds); B6 (MoE
    row gather) at ``benchmarks/kernel_bench.py``'s shape and the test
    shapes, f32 and bf16, bit-exact; each timed beside its plain version, a
    library call where one exists, and its bound. Then
@@ -119,7 +122,7 @@ KERNEL_NAMES = {
     "quant_matmul": ("quant_matmul_kernel",),
     "fused_spike_accum_sparse": ("sparse_encode_kernel", "sparse_rows_kernel",
                                  "sparse_gather_kernel"),
-    "event_accum": ("event_accum_kernel",),
+    "event_accum": ("event_accum_decode_kernel", "event_accum_gather_kernel"),
     "spike_compact": ("spike_compact_kernel",),
     "moe_gather": ("moe_gather_kernel",),
 }
@@ -940,9 +943,10 @@ def accum_library(words, counts, w, vm, cp):
 
 
 def b4_bf16(wt, ct, occ_t, cp, w, vm, kw4):
-    """B4 in bf16 at one step. From a zero membrane it must equal the
-    (c, phase)-ordered oracle in bf16 bit for bit (the same rounded adds in
-    the same order). Against its plain version, which adds offset by
+    """B4 in bf16 at one step. From the membrane and from a zero one it
+    must equal the (c, phase)-ordered oracle in bf16 bit for bit (the same
+    rounded adds in the same order). Against its plain version, which adds
+    offset by
     offset, it is held to the worst case of two orders: a sum of m terms
     rounded in bf16 (u = 2^-8) lies within gamma_m * sum|x| of the exact
     one, gamma_m = m u / (1 - m u), so two orders differ by at most twice
@@ -973,10 +977,14 @@ def b4_bf16(wt, ct, occ_t, cp, w, vm, kw4):
     check(bool((err <= tol).all()),
           f"B4 bf16: max |err| {float(err.max())} vs the plain version "
           "exceeds the two-order bound")
+    okw = dict(K=cp.kernel, n_win=cp.fmt.n_win, depth=DEPTH, H=cp.in_hw,
+               W=cp.in_hw)
+    ordered = ref.fused_spike_accum_ordered_ref(occ_t, w16, init=vm16, **okw)
+    check(torch.equal(got, ordered),
+          "B4 bf16: differs from the ordered oracle from the membrane (max "
+          f"|err| {float((got.float() - ordered.float()).abs().max())})")
     zero = ea.event_accum_cuda(wt, ct, w16, torch.zeros_like(vm16), **kw4)
-    ordered = ref.fused_spike_accum_ordered_ref(
-        occ_t, w16, K=cp.kernel, n_win=cp.fmt.n_win, depth=DEPTH,
-        H=cp.in_hw, W=cp.in_hw)
+    ordered = ref.fused_spike_accum_ordered_ref(occ_t, w16, **okw)
     check(torch.equal(zero, ordered),
           "B4 bf16: differs from the ordered oracle (max |err| "
           f"{float((zero.float() - ordered.float()).abs().max())})")
@@ -989,10 +997,12 @@ def phase_word_kernels(stages, device):
     """B5 and B4 on every event-driven stage's real activity at bucket 64
     (T=4, depth 64): B5 over the stage's B*T*C*K2 occupancy rows, B4 on the
     resulting queues at each of the T steps, both held against their plain
-    versions and timed."""
+    versions, B4 also against the ordered oracle from the membrane, and
+    timed."""
     import torch
 
     from repro_torch.kernels import event_accum as ea
+    from repro_torch.kernels import ref
     from repro_torch.kernels import spike_compact as sc
 
     gen = torch.Generator().manual_seed(SEED + 4)
@@ -1044,6 +1054,7 @@ def phase_word_kernels(stages, device):
         kw4 = dict(K=cp.kernel, n_win=fmt.n_win, bits=fmt.bits_coord)
         for t in range(T):
             wt, ct = words[:, t], counts[:, t]
+            occ_t = occ.reshape(B, T, C, K2, P)[:, t]
 
             def accum(w=w_gauss, vm=vm_g, wt=wt, ct=ct, kw4=kw4):
                 return ea.event_accum_cuda(wt, ct, w, vm, **kw4)
@@ -1055,7 +1066,13 @@ def phase_word_kernels(stages, device):
                 return accum_library(wt, ct, w_gauss, vm_g, cp)
 
             got, want = accum(), accum_plain()
+            ordered = ref.fused_spike_accum_ordered_ref(
+                occ_t, w_gauss, K=cp.kernel, n_win=fmt.n_win, depth=DEPTH,
+                H=cp.in_hw, W=cp.in_hw, init=vm_g)
             torch.cuda.synchronize()
+            check(torch.equal(got, ordered),
+                  f"B4 {name} t={t}: differs from the ordered oracle from the "
+                  f"membrane (max |err| {float((got - ordered).abs().max())})")
             err = float((got - want).abs().max())
             check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
                   f"B4 {name} t={t}: Gaussian max |err| {err}")
@@ -1069,8 +1086,7 @@ def phase_word_kernels(stages, device):
                   f"{float((got_dy - want_dy).abs().max())})")
             b4_err = max(b4_err, err)
             live = int(ct.sum())
-            adds = stage_work(occ.reshape(B, T, C, K2, P)[:, t], cp, DEPTH,
-                              w_gauss, device)[1]
+            adds = stage_work(occ_t, cp, DEPTH, w_gauss, device)[1]
             nbytes4 = (4 * live + ct.numel() * 4 + w_gauss.numel() * 4
                        + 2 * vm_g.numel() * 4)
             b_ms, b_by = bound(nbytes4, adds, FP32_FLOP_PER_S)
@@ -1083,14 +1099,13 @@ def phase_word_kernels(stages, device):
                         library_ms=time_ms(library), bound_ms=b_ms,
                         bound_by=b_by)
             if name.startswith("conv0") and t == 0:
-                row4.update(b4_bf16(wt, ct, occ.reshape(B, T, C, K2, P)[:, t],
-                                    cp, w_gauss, vm_g, kw4))
+                row4.update(b4_bf16(wt, ct, occ_t, cp, w_gauss, vm_g, kw4))
                 log(f"[word] B4 bf16 {name} t=0 | ms {row4['bf16_ms']:.4f} "
                     f"(fp32 {row4['ms']:.4f}) plain "
                     f"{row4['bf16_plain_ms']:.4f} | max|err| vs plain "
                     f"{row4['bf16_max_abs_err']:.3g} within the two-order "
-                    f"bound (max {row4['bf16_tol_max']:.3g}); from a zero "
-                    "membrane == the ordered oracle in bf16")
+                    f"bound (max {row4['bf16_tol_max']:.3g}); == the ordered "
+                    "oracle in bf16 from the membrane and from zero")
             b4_rows.append(row4)
         per = [r for r in b4_rows if r["stage"] == name]
         log(f"[word] B4 {name:21s} N={B} C_in={C} hw={cp.in_hw} C_out="
@@ -1099,7 +1114,8 @@ def phase_word_kernels(stages, device):
             f"{sum(r['device_ms'] for r in per):.4f}), plain "
             f"{sum(r['plain_ms'] for r in per):.4f}, library "
             f"{sum(r['library_ms'] for r in per):.4f}, bound "
-            f"{sum(r['bound_ms'] for r in per):.4f} | max|err| "
+            f"{sum(r['bound_ms'] for r in per):.4f} | == the ordered oracle "
+            f"from the membrane, max|err| vs plain "
             f"{max(r['max_abs_err'] for r in per):.3g}, dyadic bit-exact")
     return b5_rows, b4_rows, b4_err
 

@@ -1,4 +1,4 @@
-// One time step's event accumulation for Hopper (sm_90a).
+// One time step's event accumulation for Hopper (sm_90a): B4.
 //
 // Replaces the Pallas TPU kernel repro/kernels/event_accum.py::event_accum
 // (body `_kernel`), with a leading row axis N (the samples of a batch): for
@@ -10,164 +10,177 @@
 // i_c = 0, so only the count kills it there. The result goes to a new
 // membrane; the input one is read once.
 //
-// The membrane and weights are fp32, or both bf16 as the TPU kernel takes
-// them: then every add is rounded to bf16, as the Pallas kernel's `cur + w`
-// in bf16 is, in the same (c, phase) order. The add runs in fp32 and
-// __float2bfloat16_rn rounds it once: fp32's 24 bits are more than
-// 2 * 8 + 2, so that double rounding gives the correctly rounded bf16 sum.
+// The membrane is fp32, or bf16 as the TPU kernel takes it (the wrapper
+// widens bf16 weights to fp32, which is exact): then every add is rounded
+// to bf16, as the Pallas kernel's `cur + w` in bf16 is, in the same (c,
+// phase) order.
 //
-// What bounds it on an H100: the membrane read and write and the queue
-// words are the device-memory traffic, (2*N*H*W*C_out*sizeof(T) +
-// N*C_in*K*K*D*4) B / 3.35 TB/s; the work is one shared-memory
-// read-modify-write per (live event, in-bounds offset, output channel),
-// the engine's `add_ops`.
+// What bounds it on an H100: the membrane read and write and the live queue
+// words are the device-memory traffic, (2*N*H*W*C_out*sizeof(T) + live*4 +
+// N*C_in*K*K*4) B / 3.35 TB/s; the work is one add per (live event,
+// in-bounds offset, output channel), the engine's `add_ops`.
 //
-// Design (a scatter over a membrane tile in shared memory):
-// - One block per (n, 32-wide C_out tile); lane l of every warp owns output
-//   channel tile*32 + l. The block's (H, W, 32) membrane tile lives in
-//   shared memory for the whole step: 32*32*32*4 B = 128 KiB in fp32 at the
-//   largest CIFAR-10 stage (64 KiB in bf16), hence the dynamic opt-in. It
-//   is loaded from v_mem once and stored once.
-// - The paper's phase interlacing makes the K x K footprints of all events
-//   of one (c, phase) queue disjoint, so the block's warps apply a whole
-//   queue at once (warp w takes slots w, w+8, ...) with plain shared-memory
-//   adds and no atomics; a __syncthreads() separates queues. Every output
-//   element receives its adds in one fixed (c, phase) order, independent of
-//   N and of the run, so a row's result depends only on that row.
-//   (The TPU kernel adds in (c, slot, phase) order, the reference
-//   event_conv2d offset by offset: on Gaussian weights the three differ in
-//   rounding; on dyadic weights they are equal.)
-// - Each lane keeps its K x K weights of the current channel in registers;
-//   an event's K x K targets are distinct, so their loads are all issued
-//   before the adds and stores. Empty queues are skipped (the branch is
-//   block-uniform).
+// Design: two launches, decode then gather.
+// - Decode (event_accum_decode_kernel): one warp per (n, c) cell reads the
+//   counts of the cell's K*K queues and only their live words, and sets bit
+//   p = i_c * n_win + j_c of the queue's packed bits (atomicOr in the
+//   warp's shared scratch), then writes every word of the cell: bits (N,
+//   C_in, K*K, NW) uint32, NW = ceil(n_win^2 / 32), the kept-bit format of
+//   B1's encode pass. Precondition (what compact_spikes and B5 produce, and
+//   what the scatter form this kernel had before assumed when it applied a
+//   queue without atomics): the live words of one queue name distinct
+//   positions of the window grid, j_c < n_win. A live word with j_c >=
+//   n_win names no position of the grid and is skipped.
+// - Gather (event_accum_gather_kernel): the barrier-free gather of
+//   spike_accum.cuh, each output's sum starting from v_in and every add
+//   rounded to the membrane's type. Phase interlacing gives each output at
+//   most one event per (c, phase) queue, and the gather adds c ascending,
+//   then phase ascending: the order of the scatter form, so the fp32 and
+//   bf16 results are that form's bit for bit, and a row's result depends
+//   only on that row. It holds no membrane map, so any map size whose
+//   staged bits fit a block runs. Grids whose 8-cell blocks would not cover
+//   the SMs once (the 3x3 stages: 64 window cells a step) take 2 cells a
+//   block instead, four times the blocks, and K warps a cell, one pixel
+//   row each.
 // - A row's words and counts may sit at any stride from the next row's (a
 //   step's slice of a (B, T, C, K*K, D) queue), so no copy is needed.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "spike_accum.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kTile = 32;  // output channels per block, one per lane
+using spike_accum::kTile;
+using spike_accum::kWarps;
+constexpr int kFewCells = 2;  // window cells a block for small grids
 
-__device__ __forceinline__ float zero(float) { return 0.f; }
-__device__ __forceinline__ __nv_bfloat16 zero(__nv_bfloat16) {
-  return __float2bfloat16_rn(0.f);
-}
-__device__ __forceinline__ float add_rn(float a, float b) { return a + b; }
-__device__ __forceinline__ __nv_bfloat16 add_rn(__nv_bfloat16 a,
-                                               __nv_bfloat16 b) {
-  return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
-}
-
-template <int K, typename T>
+template <int K>
 __global__ void __launch_bounds__(kWarps * 32)
-event_accum_kernel(const int32_t* __restrict__ words,
-                   const int32_t* __restrict__ counts,
-                   const T* __restrict__ w,
-                   const T* __restrict__ v_in, T* __restrict__ v_out,
-                   long long words_stride, long long counts_stride, int C_in,
-                   int D, int n_win, int bits, int H, int W, int C_out) {
+event_accum_decode_kernel(const int32_t* __restrict__ words,
+                          const int32_t* __restrict__ counts,
+                          uint32_t* __restrict__ bits, long long words_stride,
+                          long long counts_stride, int n_cells, int C_in,
+                          int D, int n_win, int nbits) {
   constexpr int K2 = K * K;
-  constexpr int pad = K / 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* vm = reinterpret_cast<T*>(smem);  // H * W * kTile
-  const int HW = H * W;
-  const int n = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int co = blockIdx.y * kTile + lane;
-  const int mask = (1 << bits) - 1;
-
-  for (int i = threadIdx.x; i < HW * kTile; i += blockDim.x) {
-    const int pix = i / kTile, o = blockIdx.y * kTile + i % kTile;
-    vm[i] = o < C_out ? v_in[((size_t)n * HW + pix) * C_out + o]
-                      : zero(T());
-  }
-  __syncthreads();
-
-  const int32_t* q_row = words + n * words_stride;
-  const int32_t* c_row = counts + n * counts_stride;
-  for (int c = 0; c < C_in; ++c) {
-    T wreg[K2];
+  extern __shared__ uint32_t scratch[];  // [kWarps][K2 * NW]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cell = blockIdx.x * kWarps + warp;
+  if (cell >= n_cells) return;  // warp-uniform
+  const int n = cell / C_in, c = cell - n * C_in;
+  const int NW = (n_win * n_win + 31) >> 5, QW = K2 * NW;
+  const int mask = (1 << nbits) - 1;
+  const int32_t* q = words + n * words_stride + (size_t)c * K2 * D;
+  const int32_t* cnt = counts + n * counts_stride + (size_t)c * K2;
+  // lane l holds the live slots of queues l and l + 32
+  const int m_lo = lane < K2 ? min(cnt[lane], D) : 0;
+  const int m_hi = lane + 32 < K2 ? min(cnt[lane + 32], D) : 0;
+  uint32_t* s = scratch + warp * QW;
+  for (int i = lane; i < QW; i += 32) s[i] = 0u;
+  __syncwarp();
 #pragma unroll
-    for (int kk = 0; kk < K2; ++kk)
-      wreg[kk] = co < C_out ? w[((size_t)kk * C_in + c) * C_out + co]
-                            : zero(T());
-#pragma unroll 1
-    for (int ph = 0; ph < K2; ++ph) {
-      const int m = min(c_row[c * K2 + ph], D);
-      if (m <= 0) continue;  // block-uniform
-      const int32_t* q = q_row + ((size_t)c * K2 + ph) * D;
-      const int ky = ph / K, kx = ph % K;
-      for (int e = warp; e < m; e += kWarps) {
-        const int word = q[e];
-        const int i_c = (word >> bits) & mask;
-        if (i_c >= n_win) continue;  // warp-uniform: a dead slot
-        const int y = i_c * K + ky;
-        const int x = (word & mask) * K + kx;
-        int idx[K2];
-        T v[K2];
-#pragma unroll
-        for (int dy = 0; dy < K; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < K; ++dx) {
-            const int ty = y - dy + pad, tx = x - dx + pad;
-            const bool ok = ty >= 0 && ty < H && tx >= 0 && tx < W;
-            idx[dy * K + dx] = ok ? (ty * W + tx) * kTile + lane : -1;
-          }
-        }
-#pragma unroll
-        for (int kk = 0; kk < K2; ++kk)
-          v[kk] = idx[kk] >= 0 ? vm[idx[kk]] : zero(T());
-#pragma unroll
-        for (int kk = 0; kk < K2; ++kk)
-          if (idx[kk] >= 0) vm[idx[kk]] = add_rn(v[kk], wreg[kk]);
+  for (int ph = 0; ph < K2; ++ph) {
+    const int m = __shfl_sync(0xffffffffu, ph < 32 ? m_lo : m_hi, ph & 31);
+    for (int d = lane; d < m; d += 32) {
+      const int word = q[ph * D + d];
+      const int i_c = (word >> nbits) & mask, j_c = word & mask;
+      if (i_c < n_win && j_c < n_win) {
+        const int p = i_c * n_win + j_c;
+        atomicOr(&s[ph * NW + (p >> 5)], 1u << (p & 31));
       }
-      __syncthreads();  // footprints of different queues overlap
     }
   }
-  for (int i = threadIdx.x; i < HW * kTile; i += blockDim.x) {
-    const int pix = i / kTile, o = blockIdx.y * kTile + i % kTile;
-    if (o < C_out) v_out[((size_t)n * HW + pix) * C_out + o] = vm[i];
-  }
+  __syncwarp();
+  uint32_t* dst = bits + (size_t)cell * QW;
+  for (int i = lane; i < QW; i += 32) dst[i] = s[i];
+}
+
+// the 8-cell gather's threads an SM must hold, as B1's gather
+template <int K, int Cells, bool Split>
+constexpr int min_blocks() {
+  constexpr int t = spike_accum::gather_warps<K, Cells, Split>() * 32;
+  constexpr int n = kWarps * 32 * spike_accum::min_blocks<K>() / t;
+  return n > 0 ? n : 1;
+}
+
+template <int K, typename T, int Cells, bool Split>
+__global__ void
+__launch_bounds__(spike_accum::gather_warps<K, Cells, Split>() * 32,
+                  min_blocks<K, Cells, Split>())
+event_accum_gather_kernel(const uint32_t* __restrict__ bits,
+                          const float* __restrict__ w,
+                          const T* __restrict__ v_in, T* __restrict__ v_out,
+                          int n_tasks, int C_in, int n_win, int H, int W,
+                          int C_out) {
+  spike_accum::gather<K, false, true, T, Cells, Split>(
+      bits, w, nullptr, nullptr, nullptr, v_out, n_tasks, C_in, n_win, H, W,
+      C_out, v_in);
+}
+
+int sm_count() {
+  int dev = 0, n = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+template <int K, typename T, int Cells, bool Split>
+int gather(const uint32_t* bits, const float* w, const T* v_in, T* v_out,
+           long long n_tasks, int C_in, int n_win, int H, int W, int C_out,
+           cudaStream_t stream) {
+  const size_t smem = spike_accum::gather_smem<K, Cells>(n_win, H, W);
+  if (smem > (size_t)spike_accum::kSmemMax) return (int)cudaErrorInvalidValue;
+  const int err = spike_accum::opt_in_smem<
+      event_accum_gather_kernel<K, T, Cells, Split>>();
+  if (err != 0) return err;
+  dim3 grid((unsigned)((n_tasks + Cells - 1) / Cells),
+            (C_out + kTile - 1) / kTile);
+  event_accum_gather_kernel<K, T, Cells, Split>
+      <<<grid, spike_accum::gather_warps<K, Cells, Split>() * 32, smem,
+         stream>>>(bits, w, v_in, v_out, (int)n_tasks, C_in, n_win, H, W,
+                   C_out);
+  return (int)cudaGetLastError();
 }
 
 template <int K, typename T>
 int launch(const void* words, const void* counts, const void* w,
-           const void* v_in, void* v_out, int N, long long words_stride,
-           long long counts_stride, int C_in, int D, int n_win, int bits,
-           int H, int W, int C_out, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)H * W * kTile;
-  static size_t opted_in = 48 * 1024;  // the default dynamic limit
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        event_accum_kernel<K, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = smem;
-  }
-  dim3 grid(N, (C_out + kTile - 1) / kTile);
-  event_accum_kernel<K, T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const int32_t*>(words), static_cast<const int32_t*>(counts),
-      static_cast<const T*>(w), static_cast<const T*>(v_in),
-      static_cast<T*>(v_out), words_stride, counts_stride, C_in, D, n_win,
-      bits, H, W, C_out);
-  return (int)cudaGetLastError();
+           const void* v_in, void* v_out, void* bits, int N,
+           long long words_stride, long long counts_stride, int C_in, int D,
+           int n_win, int nbits, int H, int W, int C_out,
+           cudaStream_t stream) {
+  const int n_cells = N * C_in;
+  const int NW = (n_win * n_win + 31) / 32;
+  uint32_t* b = static_cast<uint32_t*>(bits);
+  event_accum_decode_kernel<K>
+      <<<(n_cells + kWarps - 1) / kWarps, kWarps * 32,
+         sizeof(uint32_t) * kWarps * K * K * NW, stream>>>(
+          static_cast<const int32_t*>(words),
+          static_cast<const int32_t*>(counts), b, words_stride, counts_stride,
+          n_cells, C_in, D, n_win, nbits);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const long long n_tasks =
+      (long long)N * ((H + K - 1) / K) * ((W + K - 1) / K);
+  const long long blocks =
+      (n_tasks + kWarps - 1) / kWarps * ((C_out + kTile - 1) / kTile);
+  const float* wf = static_cast<const float*>(w);
+  const T* vi = static_cast<const T*>(v_in);
+  T* vo = static_cast<T*>(v_out);
+  if (blocks < sm_count())
+    return gather<K, T, kFewCells, true>(b, wf, vi, vo, n_tasks, C_in, n_win,
+                                         H, W, C_out, stream);
+  return gather<K, T, kWarps, false>(b, wf, vi, vo, n_tasks, C_in, n_win, H,
+                                     W, C_out, stream);
 }
 
 template <typename T>
 int launch_k(int K, const void* words, const void* counts, const void* w,
-             const void* v_in, void* v_out, int N, long long words_stride,
-             long long counts_stride, int C_in, int D, int n_win, int bits,
-             int H, int W, int C_out, cudaStream_t s) {
+             const void* v_in, void* v_out, void* bits, int N,
+             long long words_stride, long long counts_stride, int C_in,
+             int D, int n_win, int nbits, int H, int W, int C_out,
+             cudaStream_t s) {
   switch (K) {
-    case 1: return launch<1, T>(words, counts, w, v_in, v_out, N, words_stride, counts_stride, C_in, D, n_win, bits, H, W, C_out, s);
-    case 3: return launch<3, T>(words, counts, w, v_in, v_out, N, words_stride, counts_stride, C_in, D, n_win, bits, H, W, C_out, s);
-    case 5: return launch<5, T>(words, counts, w, v_in, v_out, N, words_stride, counts_stride, C_in, D, n_win, bits, H, W, C_out, s);
-    case 7: return launch<7, T>(words, counts, w, v_in, v_out, N, words_stride, counts_stride, C_in, D, n_win, bits, H, W, C_out, s);
+    case 1: return launch<1, T>(words, counts, w, v_in, v_out, bits, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
+    case 3: return launch<3, T>(words, counts, w, v_in, v_out, bits, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
+    case 5: return launch<5, T>(words, counts, w, v_in, v_out, bits, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
+    case 7: return launch<7, T>(words, counts, w, v_in, v_out, bits, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -177,21 +190,26 @@ int launch_k(int K, const void* words, const void* counts, const void* w,
 extern "C" {
 
 // words (N, C_in, K*K, D) int32 with row stride words_stride, counts (N,
-// C_in, K*K) int32 with row stride counts_stride, w (K, K, C_in, C_out),
-// v_in and v_out (N, H, W, C_out), all fp32, or all bf16 with bf16 != 0; K
-// in {1, 3, 5, 7}. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for another K).
+// C_in, K*K) int32 with row stride counts_stride, w (K, K, C_in, C_out)
+// fp32, v_in and v_out (N, H, W, C_out), fp32, or bf16 with bf16 != 0;
+// bits (N, C_in, K*K, ceil(n_win^2 / 32)) uint32 scratch, every word
+// written by the decode; N, C_in, C_out >= 1; K in {1, 3, 5, 7}. Returns
+// the first non-zero cudaGetLastError() of its two launches
+// (cudaErrorInvalidValue for another K, or for a map whose staged bits do
+// not fit a block's shared memory).
 int event_accum(const void* words, const void* counts, const void* w,
-                const void* v_in, void* v_out, int N, int words_stride,
-                int counts_stride, int C_in, int K, int D, int n_win,
-                int bits, int H, int W, int C_out, int bf16, void* stream) {
+                const void* v_in, void* v_out, void* bits, int N,
+                int words_stride, int counts_stride, int C_in, int K, int D,
+                int n_win, int nbits, int H, int W, int C_out, int bf16,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16 != 0)
-    return launch_k<__nv_bfloat16>(K, words, counts, w, v_in, v_out, N,
+    return launch_k<__nv_bfloat16>(K, words, counts, w, v_in, v_out, bits, N,
                                    words_stride, counts_stride, C_in, D,
-                                   n_win, bits, H, W, C_out, s);
-  return launch_k<float>(K, words, counts, w, v_in, v_out, N, words_stride,
-                         counts_stride, C_in, D, n_win, bits, H, W, C_out, s);
+                                   n_win, nbits, H, W, C_out, s);
+  return launch_k<float>(K, words, counts, w, v_in, v_out, bits, N,
+                         words_stride, counts_stride, C_in, D, n_win, nbits,
+                         H, W, C_out, s);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // The accumulate shared by the fused spike kernels B1 (spike_pipeline.cu)
-// and B3 (spike_sparse.cu) on Hopper (sm_90a): a barrier-free gather that
-// keeps the (c, phase) order of adds of the scatter form it replaces.
+// and B3 (spike_sparse.cu) and the event accumulate B4 (event_accum.cu) on
+// Hopper (sm_90a): a barrier-free gather that keeps the (c, phase) order of
+// adds of the scatter form it replaces.
 //
 // Both kernels compute, for occupancy occ (N, C_in, K*K, P) int32 and HWIO
 // weights w (K, K, C_in, C_out), the (N, H, W, C_out) charge of the events
@@ -37,6 +38,18 @@
 // K*K weights once (shared by the K*K pixels) and runs K^4 predicated
 // adds over K*K independent sums.
 //
+// B4 reaches the gather from packed AE words instead of occupancy (its own
+// decode pass writes the same kept bits) and with two template arguments
+// B1 and B3 leave at their defaults: Init starts each sum from the
+// membrane v_in instead of 0, and the membrane's type T sets the rounding
+// (bf16: every add is __float2bfloat16_rn of the fp32 sum, widened back;
+// fp32's 24 bits are more than 2 * 8 + 2, so that double rounding is the
+// correctly rounded bf16 sum). For grids too small to cover the SMs (B4's
+// 3x3 stages: 64 window cells a step) B4 also lowers Cells, the window
+// cells a block takes, and sets Split: K warps share a cell, one pixel row
+// each, so each warp's chain of adds is K times shorter. No block ever
+// splits C_in, which would change the order of adds.
+//
 // The gather walks C_in in chunks of CC channels. A chunk's weights
 // (K*K, CC, 32) and the kept bits of the block's rows (rows, CC, K*K*NW)
 // are staged in shared memory with cp.async, double-buffered: the next
@@ -62,6 +75,7 @@
 // bit is set.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,14 +112,39 @@ inline __host__ __device__ int rows_spanned(int tasks, int cells) {
   return (tasks + cells - 2) / cells + 1;
 }
 
-template <int K>
+template <int K, int Cells = kWarps>
 inline size_t gather_smem(int n_win, int H, int W) {
   constexpr int K2 = K * K, CC = chunk_channels<K>();
   const int NW = (n_win * n_win + 31) / 32;
   const int cells = ((H + K - 1) / K) * ((W + K - 1) / K);
   return 4 * (2 * (size_t)K2 * CC * kTile
-              + 2 * (size_t)rows_spanned(kWarps, cells) * CC
+              + 2 * (size_t)rows_spanned(Cells, cells) * CC
                     * cell_words(K2, NW));
+}
+
+// warps of a gather block: one per window cell, or K with Split
+template <int K, int Cells, bool Split>
+__host__ __device__ constexpr int gather_warps() {
+  return Cells * (Split ? K : 1);
+}
+
+// The gather's sums are fp32; a membrane of type T is widened on load and
+// every add is rounded to T (a no-op for fp32).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float a);
+template <>
+__device__ __forceinline__ float narrow<float>(float a) { return a; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float a) {
+  return __float2bfloat16_rn(a);
+}
+template <typename T>
+__device__ __forceinline__ float add_rounded(float acc, float w) {
+  return widen(narrow<T>(acc + w));
 }
 
 // For pixel i of a cell and phase k: the offset d = (k - i + pad) mod K,
@@ -127,6 +166,41 @@ __host__ __device__ constexpr bool reaches(int k, int ro) {
   bool any = false;
   for (int i = 0; i < K; ++i) any = any || cell_of<K>(i, k) == ro;
   return any;
+}
+
+// Adds one input channel's kept events to the sums acc[0, K) of pixel row
+// I of a window cell, phase ascending per pixel (the order of adds): m
+// holds the channel's 3x3 neighbourhood bits, wr its K*K weights.
+template <int K, int I, typename T>
+__device__ __forceinline__ void add_row(float* acc, const unsigned* m,
+                                        const float* wr) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+#pragma unroll
+    for (int ph = 0; ph < K * K; ++ph) {
+      const int ky = ph / K, kx = ph % K;
+      const int bit = (ph % 3) * 9 + (cell_of<K>(I, ky) + 1) * 3
+                      + (cell_of<K>(j, kx) + 1);
+      if ((m[ph / 3] >> bit) & 1u)
+        acc[j] = add_rounded<T>(
+            acc[j], wr[offset_of<K>(I, ky) * K + offset_of<K>(j, kx)]);
+    }
+  }
+}
+
+// The pixel rows a warp holds: all K (acc[K*K]), or with Split row i0 only
+// (acc[K]), picked by a warp-uniform branch, so that every bit position,
+// weight index and sum stays a compile-time constant.
+template <int K, typename T, bool Split, int I = 0>
+__device__ __forceinline__ void add_rows(float* acc, const unsigned* m,
+                                         const float* wr, int i0) {
+  if constexpr (I < K) {
+    if (!Split)
+      add_row<K, I, T>(acc + I * K, m, wr);
+    else if (i0 == I)
+      add_row<K, I, T>(acc, m, wr);
+    add_rows<K, T, Split, I + 1>(acc, m, wr, i0);
+  }
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -186,28 +260,32 @@ __device__ __forceinline__ void encode(
   }
 }
 
-// Pass 2. Grid (ceil(n_tasks / kWarps), ceil(C_out / 32)); task t is window
-// cell t % cells of row order[t / cells] (row t / cells when order is
-// null), cells = ceil(H / K) * ceil(W / K). cell_tot, when given, skips a
-// lane's empty cells. Scaled multiplies each sum by w_scale[0].
-template <int K, bool Scaled>
+// Pass 2. Grid (ceil(n_tasks / Cells), ceil(C_out / 32)), gather_warps()
+// warps a block; task t is window cell t % cells of row order[t / cells]
+// (row t / cells when order is null), cells = ceil(H / K) * ceil(W / K).
+// cell_tot, when given, skips a lane's empty cells. Scaled multiplies each
+// sum by w_scale[0]. Init starts each sum from v_in (same layout as out);
+// every add is rounded to T, the type of v_in and out.
+template <int K, bool Scaled, bool Init = false, typename T = float,
+          int Cells = kWarps, bool Split = false>
 __device__ __forceinline__ void gather(
     const uint32_t* __restrict__ bits, const float* __restrict__ w,
     const float* __restrict__ w_scale, const int32_t* __restrict__ cell_tot,
-    const int32_t* __restrict__ order, float* __restrict__ out, int n_tasks,
-    int C_in, int n_win, int H, int W, int C_out) {
+    const int32_t* __restrict__ order, T* __restrict__ out, int n_tasks,
+    int C_in, int n_win, int H, int W, int C_out,
+    const T* __restrict__ v_in = nullptr) {
   constexpr int K2 = K * K, CC = chunk_channels<K>();
   constexpr int NB = (K2 + 2) / 3;  // neighbourhood words, 3 phases each
   extern __shared__ __align__(16) unsigned char smem[];
   const int NW = (n_win * n_win + 31) >> 5, CW = cell_words(K2, NW);
   const int cells_x = (W + K - 1) / K, cells = ((H + K - 1) / K) * cells_x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t0 = blockIdx.x * kWarps;
+  const int t0 = blockIdx.x * Cells;
   const int r_first = t0 / cells;
-  const int span = (min(t0 + kWarps, n_tasks) - 1) / cells - r_first + 1;
+  const int span = (min(t0 + Cells, n_tasks) - 1) / cells - r_first + 1;
   const int co0 = blockIdx.y * kTile;
   const int wbuf = K2 * CC * kTile;                        // per buffer
-  const int bbuf = rows_spanned(kWarps, cells) * CC * CW;  // per buffer
+  const int bbuf = rows_spanned(Cells, cells) * CC * CW;   // per buffer
   float* w_s = reinterpret_cast<float*>(smem);             // [2][K2][CC][32]
   uint32_t* b_s = reinterpret_cast<uint32_t*>(w_s + 2 * wbuf);
   const bool vec =
@@ -244,16 +322,28 @@ __device__ __forceinline__ void gather(
     cp_async_commit();
   };
 
-  const int t = t0 + warp;
+  constexpr int R = Split ? 1 : K;  // pixel rows this warp sums
+  const int t = t0 + (Split ? warp / K : warp);
+  const int i0 = Split ? warp % K : 0;  // its first pixel row
   const bool task = t < n_tasks;  // warp-uniform
   const int r = task ? t / cells : r_first;
   const int cell = task ? t - r * cells : 0;
   const int a = cell / cells_x, b = cell - (cell / cells_x) * cells_x;
   const int row = task ? row_of(r) : 0;
 
-  float acc[K2];
+  const int oc = co0 + lane;  // this lane's output channel
+  float acc[R * K];
 #pragma unroll
-  for (int i = 0; i < K2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int ty = a * K + i0 + i, tx = b * K + j;
+      acc[i * K + j] =
+          Init && task && oc < C_out && ty < H && tx < W
+              ? widen(v_in[(((size_t)row * H + ty) * W + tx) * C_out + oc])
+              : 0.f;
+    }
+  }
 
   const int n_chunks = (C_in + CC - 1) / CC;
   stage(0);
@@ -312,39 +402,22 @@ __device__ __forceinline__ void gather(
 #pragma unroll
         for (int kk = 0; kk < K2; ++kk)
           wr[kk] = wb[(kk * CC + c) * kTile + lane];
-        // per pixel (i, j), phase ascending: the order of adds
-#pragma unroll
-        for (int i = 0; i < K; ++i) {
-#pragma unroll
-          for (int j = 0; j < K; ++j) {
-#pragma unroll
-            for (int ph = 0; ph < K2; ++ph) {
-              const int ky = ph / K, kx = ph % K;
-              const int bit = (ph % 3) * 9 + (cell_of<K>(i, ky) + 1) * 3
-                              + (cell_of<K>(j, kx) + 1);
-              if ((m[ph / 3] >> bit) & 1u)
-                acc[i * K + j] = acc[i * K + j]
-                                 + wr[offset_of<K>(i, ky) * K
-                                      + offset_of<K>(j, kx)];
-            }
-          }
-        }
+        add_rows<K, T, Split>(acc, m, wr, i0);
       }
     }
     __syncthreads();  // the next stage overwrites this chunk's buffer
   }
 
-  const int co = co0 + lane;
-  if (!task || co >= C_out) return;
+  if (!task || oc >= C_out) return;
   const float scale = Scaled ? w_scale[0] : 1.f;
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      const int ty = a * K + i, tx = b * K + j;
+      const int ty = a * K + i0 + i, tx = b * K + j;
       if (ty >= H || tx >= W) continue;
-      out[(((size_t)row * H + ty) * W + tx) * C_out + co] =
-          Scaled ? __fmul_rn(acc[i * K + j], scale) : acc[i * K + j];
+      out[(((size_t)row * H + ty) * W + tx) * C_out + oc] = narrow<T>(
+          Scaled ? __fmul_rn(acc[i * K + j], scale) : acc[i * K + j]);
     }
   }
 }
@@ -367,18 +440,10 @@ inline int launch_encode(EncodeKernel kernel, const void* occ,
   return (int)cudaGetLastError();
 }
 
-// One instantiation, and so one opt-in flag, per kernel.
-template <int K, GatherKernel kernel>
-int launch_gather(const uint32_t* bits,
-                  const void* w, const void* w_scale,
-                  const int32_t* cell_tot, const int32_t* order, void* out,
-                  int n_rows, int C_in, int n_win, int H, int W, int C_out,
-                  cudaStream_t stream) {
-  const long long n_tasks =
-      (long long)n_rows * ((H + K - 1) / K) * ((W + K - 1) / K);
-  if (n_tasks == 0 || C_out == 0 || C_in == 0) return 0;
-  const size_t smem = gather_smem<K>(n_win, H, W);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+// One instantiation, and so one opt-in flag, per kernel: the gather's
+// dynamic shared memory may exceed the 48 KiB default.
+template <auto kernel>
+int opt_in_smem() {
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -390,6 +455,22 @@ int launch_gather(const uint32_t* bits,
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
+  return 0;
+}
+
+template <int K, GatherKernel kernel>
+int launch_gather(const uint32_t* bits,
+                  const void* w, const void* w_scale,
+                  const int32_t* cell_tot, const int32_t* order, void* out,
+                  int n_rows, int C_in, int n_win, int H, int W, int C_out,
+                  cudaStream_t stream) {
+  const long long n_tasks =
+      (long long)n_rows * ((H + K - 1) / K) * ((W + K - 1) / K);
+  if (n_tasks == 0 || C_out == 0 || C_in == 0) return 0;
+  const size_t smem = gather_smem<K>(n_win, H, W);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  const int err = opt_in_smem<kernel>();
+  if (err != 0) return err;
   dim3 grid((unsigned)((n_tasks + kWarps - 1) / kWarps),
             (C_out + kTile - 1) / kTile);
   kernel<<<grid, kWarps * 32, smem, stream>>>(

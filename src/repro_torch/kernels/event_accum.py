@@ -12,22 +12,29 @@ kernel (the uncompressed format's invalid word decodes to row 0, so the
 count is what kills it). Both return a new membrane; the input is kept.
 
 - :func:`event_accum_cuda` — the CUDA kernel ``csrc/event_accum.cu``
-  (replaces the Pallas TPU kernel ``event_accum``);
+  (replaces the Pallas TPU kernel ``event_accum``): a decode of the live
+  words into packed kept bits (:func:`event_bits_plain` is its plain
+  version), then the gather of ``csrc/spike_accum.cuh`` starting from the
+  membrane;
 - :func:`event_accum_plain` — the reference ``event_conv2d``'s order:
   offset by offset, every live event in (n, c, phase, slot) order.
 
-The kernel adds into each output in (c, phase) order instead, so on
-Gaussian weights the two agree to rounding, not bit for bit; on dyadic
-weights every sum is exact and they are equal.
-``kernels.ops.event_accum`` picks between them by the tensor's device.
+The kernel adds into each output in (c, phase) order instead — the order of
+``ref.fused_spike_accum_ordered_ref`` with ``init=v_mem``, which it equals
+bit for bit — so on Gaussian weights it and the plain version agree to
+rounding, not bit for bit; on dyadic weights every sum is exact and they
+are equal. ``kernels.ops.event_accum`` picks between them by the tensor's
+device.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
+from .spike_pipeline import check_gather_fits
 
 
 def _live_events(words, counts, K, n_win, bits):
@@ -83,17 +90,49 @@ def event_accum_plain(words, counts, weights, v_mem, *, K, n_win, bits):
     return out.reshape(N, H, W, C_out)
 
 
-_TILE = 32             # output channels per block (kTile in the source)
-_SMEM_MAX = 232_448    # shared memory one Hopper block may opt in to
-_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 12
+def pack_bits(kept):
+    """(..., P) bool -> (..., ceil(P / 32)) int32 words, bit p % 32 of word
+    p // 32 set <=> kept[..., p] (the kernels' uint32 bits, as int32)."""
+    *lead, P = kept.shape
+    nw = -(-P // 32)
+    m = F.pad(kept.to(torch.int64), (0, nw * 32 - P)).reshape(*lead, nw, 32)
+    v = (m << torch.arange(32, device=kept.device)).sum(-1)
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def event_bits_plain(words, counts, *, n_win, bits):
+    """The decode pass of ``csrc/event_accum.cu``: (..., C_in, K², D) words
+    with their counts -> (..., C_in, K², ceil(n_win² / 32)) packed bits of
+    the window positions i_c * n_win + j_c that live slots name (a live
+    word with j_c >= n_win names none)."""
+    D = words.shape[-1]
+    P = n_win * n_win
+    mask = (1 << bits) - 1
+    i_c = (words >> bits) & mask
+    j_c = words & mask
+    slot = torch.arange(D, dtype=torch.int32, device=words.device)
+    live = (i_c < n_win) & (j_c < n_win) & (slot < counts[..., None])
+    pos = torch.where(live, i_c * n_win + j_c, P).long()
+    kept = torch.zeros((*words.shape[:-1], P + 1), dtype=torch.bool,
+                       device=words.device)
+    kept.scatter_(-1, pos, live)           # dead slots all land in spare P
+    return pack_bits(kept[..., :P])
+
+
+_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 12
              + (ctypes.c_void_p,))
 
 
-def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits):
-    """Launch ``csrc/event_accum.cu`` on the current stream.
+
+def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits,
+                     bits_out=None):
+    """Launch ``csrc/event_accum.cu`` on the current stream: its decode,
+    then its gather.
 
     ``words`` and ``counts`` may be a step's slice of a larger queue (a
-    stride between rows); within a row they must be contiguous.
+    stride between rows); within a row they must be contiguous. The decode
+    writes its packed bits into ``bits_out`` ((N, C_in, K², ceil(n_win² /
+    32)) int32) when given, else into scratch.
     """
     tensors = (words, counts, weights, v_mem)
     dev = v_mem.device
@@ -109,8 +148,6 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits):
         raise TypeError("words and counts must be int32")
     N, C_in, K2, D = words.shape
     _, H, W, C_out = v_mem.shape
-    if K not in (1, 3, 5, 7):
-        raise ValueError(f"the kernel is built for K in (1, 3, 5, 7), got {K}")
     if (K2 != K * K or tuple(counts.shape) != (N, C_in, K2)
             or tuple(weights.shape) != (K, K, C_in, C_out)
             or v_mem.shape[0] != N):
@@ -118,22 +155,31 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits):
                          f"{tuple(counts.shape)}, weights "
                          f"{tuple(weights.shape)}, v_mem "
                          f"{tuple(v_mem.shape)}, K={K}")
-    smem = v_mem.element_size() * H * W * _TILE
-    if smem > _SMEM_MAX:
-        raise ValueError(f"a {H}x{W} membrane needs {smem} bytes of shared "
-                         f"memory per block; the kernel has {_SMEM_MAX}")
+    check_gather_fits(K, n_win, H, W)
+    shape = (N, C_in, K2, -(-n_win * n_win // 32))
+    if bits_out is not None and (
+            bits_out.device != dev or bits_out.dtype != torch.int32
+            or tuple(bits_out.shape) != shape
+            or not bits_out.is_contiguous()):
+        raise ValueError(f"bits_out must be a contiguous int32 {shape} "
+                         "tensor on the membrane's device")
     out = torch.empty_like(v_mem)
     if out.numel() == 0:
         return out
+    if C_in == 0:                          # no queue, no event
+        return out.copy_(v_mem)
     if not (words[0].is_contiguous() and counts[0].is_contiguous()
             and weights.is_contiguous() and v_mem.is_contiguous()):
         raise ValueError("words and counts must be contiguous within a row; "
                          "weights and v_mem contiguous")
+    scratch = words.new_empty(shape) if bits_out is None else bits_out
+    w = weights.float()                    # bf16 widens exactly
     fn = _cuda.kernel_fn("event_accum", "event_accum", _ARGTYPES)
     _cuda.launch_counts["event_accum"] += 1
-    err = fn(words.data_ptr(), counts.data_ptr(), weights.data_ptr(),
-             v_mem.data_ptr(), out.data_ptr(), N, words.stride(0),
-             counts.stride(0), C_in, K, D, n_win, bits, H, W, C_out,
-             int(v_mem.dtype == torch.bfloat16), _cuda.stream_ptr(dev))
+    err = fn(words.data_ptr(), counts.data_ptr(), w.data_ptr(),
+             v_mem.data_ptr(), out.data_ptr(), scratch.data_ptr(), N,
+             words.stride(0), counts.stride(0), C_in, K, D, n_win, bits, H,
+             W, C_out, int(v_mem.dtype == torch.bfloat16),
+             _cuda.stream_ptr(dev))
     _cuda.check_launch(err, "event_accum")
     return out

@@ -56,24 +56,28 @@ def fused_spike_accum_ref(occ, weights, *, K, n_win, depth, H, W):
     return out.reshape(N, H, W, C_out)
 
 
-def fused_spike_accum_ordered_ref(occ, weights, *, K, n_win, depth, H, W):
-    """The fused accumulate with the (c, phase) order of adds of B1 and B3.
+def fused_spike_accum_ordered_ref(occ, weights, *, K, n_win, depth, H, W,
+                                  init=None):
+    """The fused accumulate with the (c, phase) order of adds of B1, B3 and
+    B4.
 
     Applies the drop rule, then for c ascending and phase ascending adds
     queue (c, phase)'s kept events into every output they reach, one
     ``torch.where(hit, w, 0)`` at a time, in the weights' dtype. The
     phase interlacing puts, in each output's K x K window, exactly one
     position of each phase, so an output takes at most one weight per
-    queue: this is the exact sequence of adds, from 0, that the gather
-    kernels perform for each output (adding 0 changes no partial sum).
+    queue: this is the exact sequence of adds that the gather kernels
+    perform for each output (adding 0 changes no partial sum), from 0 (B1,
+    B3) or, with ``init`` (N, H, W, C_out) in the weights' dtype, from the
+    membrane (B4).
     """
     N, C_in, K2, P = occ.shape
     fired = occ > 0
     slot = torch.cumsum(fired.to(torch.int32), dim=-1) - 1
     kept = (fired & (slot < depth)).reshape(N, C_in, K2, n_win, n_win)
     dev, pad, side = occ.device, K // 2, n_win * K
-    out = torch.zeros((N, H, W, weights.shape[-1]), dtype=weights.dtype,
-                      device=dev)
+    out = (torch.zeros((N, H, W, weights.shape[-1]), dtype=weights.dtype,
+                       device=dev) if init is None else init)
     zero = torch.zeros((), dtype=weights.dtype, device=dev)
 
     def window(t, k):

@@ -33,8 +33,20 @@ B2_SHAPES = [(16, 32, 8), (100, 200, 60), (128, 128, 128), (130, 257, 64),
 B4_SHAPES = [  # (hw, c_in, c_out, depth): tests/test_torch_word.py, + 32x32
     (9, 1, 8, 16), (12, 3, 16, 32), (28, 4, 32, 64), (28, 2, 128, 24),
     (10, 3, 8, 4), (32, 3, 40, 64)]
-B5_SHAPES = [  # (rows, n_win, depth): tests/test_kernels.py, + wide rows
-    (4, 4, 8), (9, 10, 40), (18, 10, 16), (2000, 11, 64), (300, 4, 2)]
+B5_SHAPES = [  # (rows, n_win, depth): tests/test_kernels.py, + wide rows,
+    # + P in {1, 16, 121} over thousands of rows, depth not a multiple of 4
+    # and rows not a multiple of a block's (128 at P = 1, 16 at P = 16, 8 at
+    # P = 121, at depth 64)
+    (4, 4, 8), (9, 10, 40), (18, 10, 16), (2000, 11, 64), (300, 4, 2),
+    (5000, 1, 64), (4097, 1, 3), (3001, 4, 7), (2003, 11, 61)]
+B4_GATHER_SHAPES = [  # (hw, c_in, c_out, depth, K, rows): K in {1, 3, 5, 7},
+    # a 3x3 stage and 64x64 maps; 8 window cells a block where the grid of
+    # such blocks covers the 132 SMs (32x32 at 8 rows, 64x64 at 3 rows),
+    # else 2
+    (9, 2, 8, 16, 3, 3), (10, 3, 40, 4, 3, 3), (32, 3, 40, 64, 3, 8),
+    (3, 64, 128, 64, 3, 64), (9, 2, 8, 4, 1, 3), (10, 3, 40, 64, 1, 3),
+    (11, 2, 8, 3, 5, 3), (20, 3, 16, 64, 5, 3), (14, 2, 8, 2, 7, 3),
+    (28, 3, 40, 64, 7, 3), (64, 32, 32, 64, 3, 2), (64, 8, 40, 16, 3, 3)]
 B6_SHAPES = [(16, 8, 12), (64, 32, 50), (10, 128, 40), (1024, 128, 512),
              (7, 3, 9)]
 
@@ -431,6 +443,49 @@ def test_event_accum_kernel_bf16(cuda, hw, c_in, c_out, depth):
     occ = phase_occupancy(fmt, raster[:, 1].permute(0, 2, 3, 1))
     assert torch.equal(zero, ref.fused_spike_accum_ordered_ref(
         occ, w16, K=3, n_win=fmt.n_win, depth=depth, H=hw, W=hw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c_in,c_out,depth,K,rows", B4_GATHER_SHAPES)
+def test_event_accum_kernel_matches_ordered_oracle(cuda, hw, c_in, c_out,
+                                                   depth, K, rows):
+    """B4 on Gaussian weights, over a step's slice of a (B, T, C, K2, D)
+    queue: its decode's bits equal ``event_bits_plain``; fp32 and bf16
+    equal the (c, phase)-ordered oracle started from the membrane bit for
+    bit (the order of adds of the scatter form it replaced); every row
+    equals its launch alone (another block width, the same result)."""
+    rng = np.random.default_rng(hw * depth + K + rows)
+    raster = torch.from_numpy((rng.random((rows, 2, c_in, hw, hw)) < 0.2)
+                              .astype(np.float32)).to(cuda)
+    fmt = make_format(hw, K)
+    q = aeq.aeq_from_raster_batch(fmt, raster, depth)
+    words, counts = q.words[:, 1], q.counts[:, 1]      # strided rows
+    occ = phase_occupancy(fmt, raster[:, 1].permute(0, 2, 3, 1))
+    kw = dict(K=K, n_win=fmt.n_win, bits=fmt.bits_coord)
+    okw = dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+    w = torch.from_numpy(rng.normal(size=(K, K, c_in, c_out))
+                         .astype(np.float32)).to(cuda)
+    vm = torch.from_numpy(rng.normal(size=(rows, hw, hw, c_out))
+                          .astype(np.float32)).to(cuda)
+    bits = torch.empty((rows, c_in, K * K, -(-fmt.n_win ** 2 // 32)),
+                       dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    got = ea.event_accum_cuda(words, counts, w, vm, bits_out=bits, **kw)
+    assert ops.launch_counts["event_accum"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(bits, ea.event_bits_plain(
+        words, counts, n_win=fmt.n_win, bits=fmt.bits_coord))
+    assert torch.equal(got, ref.fused_spike_accum_ordered_ref(
+        occ, w, init=vm, **okw))
+    for n in range(rows):
+        one = ea.event_accum_cuda(words[n:n + 1], counts[n:n + 1], w,
+                                  vm[n:n + 1].contiguous(), **kw)
+        assert torch.equal(one[0], got[n])
+    w16, vm16 = w.bfloat16(), vm.bfloat16()
+    got16 = ea.event_accum_cuda(words, counts, w16, vm16, **kw)
+    assert got16.dtype == torch.bfloat16
+    assert torch.equal(got16, ref.fused_spike_accum_ordered_ref(
+        occ, w16, init=vm16, **okw))
 
 
 @pytest.mark.cuda

@@ -348,6 +348,105 @@ def test_event_accum_count_kills_uncompressed_invalid_words():
     assert torch.equal(out, vm)
 
 
+def _packed(kept):
+    """(..., P) bool -> (..., ceil(P / 32)) int32 words, bit p % 32 of word
+    p // 32 set <=> kept[..., p]: numpy's little-endian bit packing."""
+    kept = np.asarray(kept, dtype=bool)
+    P = kept.shape[-1]
+    pad = -(-P // 32) * 32 - P
+    kept = np.concatenate(
+        [kept, np.zeros((*kept.shape[:-1], pad), dtype=bool)], axis=-1)
+    packed = np.packbits(kept, axis=-1, bitorder="little")
+    return np.ascontiguousarray(packed).view("<u4").view(np.int32)
+
+
+@pytest.mark.parametrize("hw,K,c_in,depth", [
+    (9, 3, 2, 16), (9, 3, 2, 2), (10, 3, 3, 16), (10, 3, 3, 3),
+    (32, 3, 2, 64), (32, 3, 2, 5), (3, 3, 4, 64), (20, 5, 2, 8),
+    (14, 7, 2, 3), (9, 1, 2, 40)])
+def test_event_bits_plain_equals_packed_segment_keep(hw, K, c_in, depth):
+    """B4's decode (plain version) turns the queues that compact_spikes (B5)
+    builds from an occupancy back into the kept bits of segment_keep on
+    that occupancy, packed as B1's encode pass packs them: in the
+    compressed and the uncompressed (n_win = 4) format, with depth < P
+    (dropped events) and >= P, and K in {1, 3, 5, 7}."""
+    ft = tenc.make_format(hw, K)
+    assert ft.compressed == (ft.n_win not in (2, 4))   # 10, 20, 14 fall back
+    raster = torch.from_numpy(_raster(3, c_in, hw, seed=hw + depth + K,
+                                      p_fire=0.4))      # (rows, C, H, W)
+    q = taeq.aeq_from_raster(ft, raster, depth)
+    got = tea.event_bits_plain(q.words, q.counts, n_win=ft.n_win,
+                               bits=ft.bits_coord)
+    occ = taeq.phase_occupancy(ft, raster.permute(0, 2, 3, 1))
+    want = _packed(taeq.segment_keep(occ, depth).numpy())
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(q.overflow) > 0 or depth >= 8   # the small depths drop
+
+
+def test_event_bits_plain_count_kills_uncompressed_invalid_words():
+    """hw=10: the invalid word names window position (0, 0); a slot past
+    its queue's count sets no bit, one below it does."""
+    ft = tenc.make_format(10, 3)
+    words = torch.full((1, 1, 9, 4), ft.invalid_word, dtype=torch.int32)
+    counts = torch.zeros((1, 1, 9), dtype=torch.int32)
+    kw = dict(n_win=ft.n_win, bits=ft.bits_coord)
+    assert not tea.event_bits_plain(words, counts, **kw).any()
+    counts[0, 0, 2] = 1
+    bits = tea.event_bits_plain(words, counts, **kw)
+    assert bits[0, 0, 2, 0] == 1 and int(bits.count_nonzero()) == 1
+
+
+@pytest.mark.parametrize("hw,c_in,c_out,depth", EA_SHAPES)
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_ordered_oracle_from_membrane_equals_event_accum(hw, c_in, c_out,
+                                                         depth, dyadic):
+    """The (c, phase)-ordered oracle started from the membrane (``init``,
+    B4's order of adds) on a step's occupancy equals B4's plain version and
+    the JAX ``event_accum_ref`` on that step's queues: bit for bit on dyadic
+    weights, within 1e-4 on Gaussian ones (three orders of adds)."""
+    fj, ft, qj, qt = _queues(hw, c_in, depth, seed=hw * depth + 7)
+    w = _weights(c_in, c_out, dyadic, seed=3)
+    vm = np.random.default_rng(4).normal(size=(2, hw, hw, c_out))
+    vm = (np.round(vm * 16) / 16 if dyadic else vm).astype(np.float32)
+    raster = _raster(2, c_in, hw, seed=hw * depth + 7)          # _queues'
+    occ = taeq.phase_occupancy(ft, torch.from_numpy(raster).permute(0, 2, 3,
+                                                                    1))
+    kw = dict(K=3, n_win=ft.n_win, bits=ft.bits_coord)
+    got = tref.fused_spike_accum_ordered_ref(
+        occ, torch.from_numpy(w), K=3, n_win=ft.n_win, depth=depth, H=hw,
+        W=hw, init=torch.from_numpy(vm))
+    plain = tea.event_accum_plain(qt.words, qt.counts, torch.from_numpy(w),
+                                  torch.from_numpy(vm), **kw)
+    want = np.stack([np.asarray(jref.event_accum_ref(
+        qj.words[t], qj.counts[t], jnp.asarray(w), jnp.asarray(vm[t]), **kw))
+        for t in range(2)])
+    if dyadic:
+        np.testing.assert_array_equal(got.numpy(), plain.numpy())
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ordered_oracle_without_init_starts_from_zero(dtype):
+    """``init=None`` (every earlier caller) is the sum from a zero membrane,
+    bit for bit, and ``init`` is not modified."""
+    ft = tenc.make_format(12, 3)
+    raster = torch.from_numpy(_raster(2, 3, 12, seed=5, p_fire=0.3))
+    occ = taeq.phase_occupancy(ft, raster.permute(0, 2, 3, 1))
+    w = torch.from_numpy(_weights(3, 8, dyadic=False)).to(dtype)
+    kw = dict(K=3, n_win=ft.n_win, depth=6, H=12, W=12)
+    zero = torch.zeros((2, 12, 12, 8), dtype=dtype)
+    base = tref.fused_spike_accum_ordered_ref(occ, w, **kw)
+    assert base.dtype == dtype
+    assert torch.equal(base, tref.fused_spike_accum_ordered_ref(
+        occ, w, init=zero, **kw))
+    assert not zero.any()
+
+
 # --- the engine's queue backend and infer ------------------------------------
 
 @functools.lru_cache(maxsize=None)
