@@ -17,7 +17,9 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    of adds the kernel keeps) and to 1e-4 against its plain PyTorch version,
    and dyadic weights bit-exactly against both the plain version and the
    scatter oracle; the int8 head kernel (B2) at M in {1, 4, 16, 64},
-   K=1152, N=10, bit-exactly; the sparse kernel (B3) on the same occupancy
+   K=1152, N=10, and at kernel_bench's (256, 256, 256), bit-exactly, with
+   its device time by profiler beside the CUDA-event time and
+   ``torch._int_mm``'s; the sparse kernel (B3) on the same occupancy
    at depth 64: fp32 on dyadic weights bit-exact and on Gaussian weights to
    1e-4 against its plain version, and bit-exact against the ordered oracle
    and B1; ``weight_bits=8`` bit-exact against its plain version and
@@ -61,10 +63,14 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    and in bf16 at the binary-input stage's first step (bit-exact against
    the ordered oracle in bf16, from the membrane and from zero; against its
    bf16 plain version within the worst-case bound of two orders of rounded
-   adds); B6 (MoE
-   row gather) at ``benchmarks/kernel_bench.py``'s shape and the test
-   shapes, f32 and bf16, bit-exact; each timed beside its plain version, a
-   library call where one exists, and its bound. Then
+   adds), and at each stage's first step once more with every live word
+   written twice (fp32 and bf16 bit-exact against the ordered oracle on the
+   decode's multiplicities, dyadic bit-exact and Gaussian to 1e-4 against
+   the plain version); B6 (MoE row gather) at
+   ``benchmarks/kernel_bench.py``'s shape and the test shapes, f32 and
+   bf16, and at a bytes-bound (T, d, S) = (4096, 4096, 8192) in bf16,
+   bit-exact; each timed beside its plain version, a library call where
+   one exists, and its bound. Then
    ``engine.infer_batch(..., backend="queue")`` on the Gaussian and the
    dyadic net, fp32 and ``weight_bits=8``, analog input, and binary input
    once, with the counters zeroed just before and read just after: B5 must
@@ -119,15 +125,20 @@ INT32_OP_PER_S = FP32_FLOP_PER_S / 2
 KERNEL_NAMES = {
     "fused_spike_accum": ("fused_spike_accum_encode",
                           "fused_spike_accum_gather"),
-    "quant_matmul": ("quant_matmul_kernel",),
+    "quant_matmul": ("quant_matmul_cluster_kernel",),
     "fused_spike_accum_sparse": ("sparse_encode_kernel", "sparse_rows_kernel",
                                  "sparse_gather_kernel"),
     "event_accum": ("event_accum_decode_kernel", "event_accum_gather_kernel"),
     "spike_compact": ("spike_compact_kernel",),
-    "moe_gather": ("moe_gather_kernel",),
+    "moe_gather": ("moe_gather_bulk_kernel", "moe_gather_warp_kernel"),
 }
-MOE_SHAPES = ((1024, 128, 512),                 # benchmarks/kernel_bench.py
-              (16, 8, 12), (64, 32, 50), (10, 128, 40))   # tests/test_kernels.py
+MOE_SHAPES = (  # (T, d, S, dtypes)
+    (1024, 128, 512, ("float32", "bfloat16")),   # benchmarks/kernel_bench.py
+    (16, 8, 12, ("float32", "bfloat16")),        # tests/test_kernels.py
+    (64, 32, 50, ("float32", "bfloat16")),
+    (10, 128, 40, ("float32", "bfloat16")),
+    (4096, 4096, 8192, ("bfloat16",)))   # bytes-bound: 32 MB in, 64 MB out
+B2_SQUARE = (256, 256, 256)   # benchmarks/kernel_bench.py's quant_matmul
 
 
 class SmokeError(RuntimeError):
@@ -429,20 +440,49 @@ def phase_kernels(stages, last_raster, params, device):
         check(torch.equal(library(), qm.quant_matmul_cuda(counts, w_q, one,
                                                           w_scale)),
               f"B2 M={M}: padded torch._int_mm differs from the kernel")
-        library_ms = time_ms(library)
         library_note = (f"torch._int_mm on A {tuple(a_pad.shape)} x W "
                         f"{tuple(w_q_pad.shape)} zero-padded, sliced to "
                         f"({M}, {N}), same dequant")
-        nbytes = M * Kd + Kd * N + M * N * 4 + 8
-        b_ms, b_by = bound(nbytes, 2 * M * Kd * N, INT8_OP_PER_S)
-        row = dict(M=M, K=Kd, N=N, ms=time_ms(kernel), plain_ms=time_ms(plain),
-                   library_ms=library_ms, library_note=library_note,
-                   bound_ms=b_ms, bound_by=b_by, max_abs_err=b2_err)
-        b2_rows.append(row)
-        log(f"[kernels] B2 M={M:3d} K={Kd} N={N} | ms {row['ms']:.4f} "
-            f"plain {row['plain_ms']:.4f} library {library_ms:.4f} "
-            f"({library_note}) bound {b_ms:.6f} ({b_by}) | bit-exact")
+        b2_rows.append(b2_row(M, Kd, N, kernel, plain, library, library_note,
+                              b2_err))
+
+    # B2 at kernel_bench's square shape, where the tensor cores matter
+    Ms, Ks, Ns = B2_SQUARE
+    a_sq = torch.randint(-128, 128, (Ms, Ks), generator=gen,
+                         dtype=torch.int8).to(device)
+    b_sq = torch.randint(-128, 128, (Ks, Ns), generator=gen,
+                         dtype=torch.int8).to(device)
+    sa = torch.tensor(0.013, device=device)
+    got = qm.quant_matmul_cuda(a_sq, b_sq, sa, w_scale)
+    want = qm.quant_matmul_plain(a_sq, b_sq, sa, w_scale)
+    lib = torch._int_mm(a_sq, b_sq).float() * (sa * w_scale)
+    check(torch.equal(got, want) and torch.equal(got, lib),
+          f"B2 {B2_SQUARE}: not bit-exact vs the plain version and "
+          f"torch._int_mm (max |err| {float((got - want).abs().max())})")
+    b2_rows.append(b2_row(
+        Ms, Ks, Ns, lambda: qm.quant_matmul_cuda(a_sq, b_sq, sa, w_scale),
+        lambda: qm.quant_matmul_plain(a_sq, b_sq, sa, w_scale),
+        lambda: torch._int_mm(a_sq, b_sq).float() * (sa * w_scale),
+        "torch._int_mm, same dequant", b2_err))
     return b1_rows, b1_err, b2_rows, b2_err
+
+
+def b2_row(M, K, N, kernel, plain, library, library_note, err):
+    """B2's times at one shape: CUDA events and device (profiler) ms of the
+    kernel, its plain version's and the library call's, and its bound."""
+    nbytes = M * K + K * N + M * N * 4 + 8
+    b_ms, b_by = bound(nbytes, 2 * M * K * N, INT8_OP_PER_S)
+    row = dict(M=M, K=K, N=N, ms=time_ms(kernel),
+               device_ms=device_ms(kernel, KERNEL_NAMES["quant_matmul"]),
+               plain_ms=time_ms(plain), library_ms=time_ms(library),
+               library_device_ms=device_ms(library, ("",)),
+               library_note=library_note, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=err)
+    log(f"[kernels] B2 M={M:3d} K={K} N={N} | ms {row['ms']:.4f} (device "
+        f"{row['device_ms']:.4f}) plain {row['plain_ms']:.4f} library "
+        f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f}; "
+        f"{library_note}) bound {b_ms:.6f} ({b_by}) | bit-exact")
+    return row
 
 
 def phase_b3(stages, device):
@@ -993,6 +1033,51 @@ def b4_bf16(wt, ct, occ_t, cp, w, vm, kw4):
                 bf16_tol_max=float(tol.max()))
 
 
+def b4_repeats(wt, ct, cp, w, vm, w_dy, vm_dy, kw4):
+    """B4 on a step's real queues with every live word written twice (the
+    count doubled, capped at the depth): every cell repeats positions, so
+    the decode flags them all and the gather adds each occurrence. Held:
+    fp32 and bf16 equal the (c, phase)-ordered oracle on the decode's
+    multiplicities bit for bit; against the plain version dyadic weights
+    bit-exact, Gaussian ones within 1e-4 (other order of adds)."""
+    import torch
+
+    from repro_torch.kernels import event_accum as ea
+    from repro_torch.kernels import ref
+
+    D = wt.shape[-1]
+    wr = wt[..., torch.arange(D, device=wt.device) // 2].contiguous()
+    cr = torch.clamp(ct * 2, max=D).contiguous()
+    fmt = cp.fmt
+    mult = ea.event_mult_plain(wr, cr, n_win=fmt.n_win, bits=fmt.bits_coord)
+    check(int(ct.sum()) == 0 or int(mult.max()) >= 2,
+          "B4 repeats: the doubled queues repeat no position")
+    okw = dict(K=cp.kernel, n_win=fmt.n_win, depth=fmt.n_win ** 2,
+               H=cp.in_hw, W=cp.in_hw, multiplicity=True)
+
+    def kernel(w=w, vm=vm):
+        return ea.event_accum_cuda(wr, cr, w, vm, **kw4)
+
+    got = kernel()
+    check(torch.equal(got, ref.fused_spike_accum_ordered_ref(
+        mult, w, init=vm, **okw)),
+        "B4 repeats: differs from the ordered oracle on the multiplicities")
+    want = ea.event_accum_plain(wr, cr, w, vm, **kw4)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
+          f"B4 repeats: Gaussian max |err| {err} vs the plain version")
+    check(torch.equal(kernel(w_dy, vm_dy),
+                      ea.event_accum_plain(wr, cr, w_dy, vm_dy, **kw4)),
+          "B4 repeats: dyadic weights not bit-exact vs the plain version")
+    w16, vm16 = w.bfloat16().contiguous(), vm.bfloat16().contiguous()
+    check(torch.equal(kernel(w16, vm16), ref.fused_spike_accum_ordered_ref(
+        mult, w16, init=vm16, **okw)),
+        "B4 repeats: bf16 differs from the ordered oracle")
+    return dict(rep_events=int(cr.sum()), rep_max_abs_err=err,
+                rep_ms=time_ms(kernel),
+                rep_device_ms=device_ms(kernel, KERNEL_NAMES["event_accum"]))
+
+
 def phase_word_kernels(stages, device):
     """B5 and B4 on every event-driven stage's real activity at bucket 64
     (T=4, depth 64): B5 over the stage's B*T*C*K2 occupancy rows, B4 on the
@@ -1098,6 +1183,16 @@ def phase_word_kernels(stages, device):
                         plain_ms=time_ms(accum_plain),
                         library_ms=time_ms(library), bound_ms=b_ms,
                         bound_by=b_by)
+            if t == 0:
+                row4.update(b4_repeats(wt, ct, cp, w_gauss, vm_g, w_dy,
+                                       vm_dy, kw4))
+                log(f"[word] B4 repeats {name} t=0, every live word twice "
+                    f"({row4['rep_events']} live slots) | ms "
+                    f"{row4['rep_ms']:.4f} (device "
+                    f"{row4['rep_device_ms']:.4f}; without repeats "
+                    f"{row4['device_ms']:.4f}) | == the ordered oracle on "
+                    "the multiplicities, fp32 and bf16; max|err| vs plain "
+                    f"{row4['rep_max_abs_err']:.3g}, dyadic bit-exact")
             if name.startswith("conv0") and t == 0:
                 row4.update(b4_bf16(wt, ct, occ_t, cp, w_gauss, vm_g, kw4))
                 log(f"[word] B4 bf16 {name} t=0 | ms {row4['bf16_ms']:.4f} "
@@ -1133,12 +1228,12 @@ def phase_moe(device):
 
     gen = torch.Generator().manual_seed(SEED + 5)
     rows = []
-    for (t, d, s) in MOE_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for (t, d, s, dtypes) in MOE_SHAPES:
+        for dtype in (getattr(torch, n) for n in dtypes):
             x = torch.randn((t, d), generator=gen).to(dtype).to(device)
             idx = torch.randint(-1, t, (s,), generator=gen,
                                 dtype=torch.int32).to(device)
-            if (t, d, s) == MOE_SHAPES[0] and dtype == torch.float32:
+            if (t, d, s) == MOE_SHAPES[0][:3] and dtype == torch.float32:
                 ops.reset_launch_counts()          # kernel_bench's one call
                 got = ops.moe_gather(x, idx)
                 launches = ops.launch_counts["moe_gather"]

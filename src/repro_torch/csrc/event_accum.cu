@@ -26,22 +26,26 @@
 //   p = i_c * n_win + j_c of the queue's packed bits (atomicOr in the
 //   warp's shared scratch), then writes every word of the cell: bits (N,
 //   C_in, K*K, NW) uint32, NW = ceil(n_win^2 / 32), the kept-bit format of
-//   B1's encode pass. Precondition (what compact_spikes and B5 produce, and
-//   what the scatter form this kernel had before assumed when it applied a
-//   queue without atomics): the live words of one queue name distinct
-//   positions of the window grid, j_c < n_win. A live word with j_c >=
-//   n_win names no position of the grid and is skipped.
+//   B1's encode pass. A live word with j_c >= n_win names no position of
+//   the grid and is skipped, as the reference's scatter drops it. A cell
+//   whose bits number fewer than its live in-grid words repeats a position
+//   in some queue: it then also counts every position's live words into
+//   mult (N, C_in, K*K, n_win^2) int32 (zeroed and counted by the warp
+//   itself), and its flags entry (N, C_in) is 1; every cell writes its
+//   flag, so nothing needs a memset, and cells without repeats (all that
+//   compact_spikes and B5 write) touch no multiplicity.
 // - Gather (event_accum_gather_kernel): the barrier-free gather of
 //   spike_accum.cuh, each output's sum starting from v_in and every add
 //   rounded to the membrane's type. Phase interlacing gives each output at
-//   most one event per (c, phase) queue, and the gather adds c ascending,
-//   then phase ascending: the order of the scatter form, so the fp32 and
-//   bf16 results are that form's bit for bit, and a row's result depends
-//   only on that row. It holds no membrane map, so any map size whose
-//   staged bits fit a block runs. Grids whose 8-cell blocks would not cover
-//   the SMs once (the 3x3 stages: 64 window cells a step) take 2 cells a
-//   block instead, four times the blocks, and K warps a cell, one pixel
-//   row each.
+//   most one position per (c, phase) queue, and the gather adds c
+//   ascending, then phase ascending, a flagged channel's position as many
+//   times as live words name it, back to back: the order of the scatter
+//   form, so the fp32 and bf16 results are that form's bit for bit, and a
+//   row's result depends only on that row. It holds no membrane map, so
+//   any map size whose staged bits fit a block runs. Grids whose 8-cell
+//   blocks would not cover the SMs once (the 3x3 stages: 64 window cells
+//   a step) take 2 cells a block instead, four times the blocks, and K
+//   warps a cell, one pixel row each.
 // - A row's words and counts may sit at any stride from the next row's (a
 //   step's slice of a (B, T, C, K*K, D) queue), so no copy is needed.
 #include "spike_accum.cuh"
@@ -56,7 +60,9 @@ template <int K>
 __global__ void __launch_bounds__(kWarps * 32)
 event_accum_decode_kernel(const int32_t* __restrict__ words,
                           const int32_t* __restrict__ counts,
-                          uint32_t* __restrict__ bits, long long words_stride,
+                          uint32_t* __restrict__ bits,
+                          int32_t* __restrict__ mult,
+                          int32_t* __restrict__ flags, long long words_stride,
                           long long counts_stride, int n_cells, int C_in,
                           int D, int n_win, int nbits) {
   constexpr int K2 = K * K;
@@ -75,6 +81,7 @@ event_accum_decode_kernel(const int32_t* __restrict__ words,
   uint32_t* s = scratch + warp * QW;
   for (int i = lane; i < QW; i += 32) s[i] = 0u;
   __syncwarp();
+  int named = 0;  // this lane's live words that name a grid position
 #pragma unroll
   for (int ph = 0; ph < K2; ++ph) {
     const int m = __shfl_sync(0xffffffffu, ph < 32 ? m_lo : m_hi, ph & 31);
@@ -84,12 +91,35 @@ event_accum_decode_kernel(const int32_t* __restrict__ words,
       if (i_c < n_win && j_c < n_win) {
         const int p = i_c * n_win + j_c;
         atomicOr(&s[ph * NW + (p >> 5)], 1u << (p & 31));
+        ++named;
       }
     }
   }
   __syncwarp();
   uint32_t* dst = bits + (size_t)cell * QW;
-  for (int i = lane; i < QW; i += 32) dst[i] = s[i];
+  int set = 0;  // bits set: fewer than the words that name positions
+  for (int i = lane; i < QW; i += 32) {  // <=> some position repeats
+    dst[i] = s[i];
+    set += __popc(s[i]);
+  }
+  const bool repeat = __reduce_add_sync(0xffffffffu, set)
+                      < __reduce_add_sync(0xffffffffu, named);
+  if (lane == 0) flags[cell] = repeat ? 1 : 0;
+  if (!repeat) return;  // warp-uniform
+  // a repeat: count every live word of the cell by position
+  const int P = n_win * n_win;
+  int32_t* mc = mult + (size_t)cell * K2 * P;
+  for (int i = lane; i < K2 * P; i += 32) mc[i] = 0;
+  __syncwarp();  // orders the zeros before the warp's atomics
+  for (int ph = 0; ph < K2; ++ph) {
+    const int m = __shfl_sync(0xffffffffu, ph < 32 ? m_lo : m_hi, ph & 31);
+    for (int d = lane; d < m; d += 32) {
+      const int word = q[ph * D + d];
+      const int i_c = (word >> nbits) & mask, j_c = word & mask;
+      if (i_c < n_win && j_c < n_win)
+        atomicAdd(&mc[ph * P + i_c * n_win + j_c], 1);
+    }
+  }
 }
 
 // the 8-cell gather's threads an SM must hold, as B1's gather
@@ -105,13 +135,15 @@ __global__ void
 __launch_bounds__(spike_accum::gather_warps<K, Cells, Split>() * 32,
                   min_blocks<K, Cells, Split>())
 event_accum_gather_kernel(const uint32_t* __restrict__ bits,
+                          const int32_t* __restrict__ mult,
+                          const int32_t* __restrict__ flags,
                           const float* __restrict__ w,
                           const T* __restrict__ v_in, T* __restrict__ v_out,
                           int n_tasks, int C_in, int n_win, int H, int W,
                           int C_out) {
-  spike_accum::gather<K, false, true, T, Cells, Split>(
+  spike_accum::gather<K, false, true, T, Cells, Split, true>(
       bits, w, nullptr, nullptr, nullptr, v_out, n_tasks, C_in, n_win, H, W,
-      C_out, v_in);
+      C_out, v_in, mult, flags);
 }
 
 int sm_count() {
@@ -122,8 +154,9 @@ int sm_count() {
 }
 
 template <int K, typename T, int Cells, bool Split>
-int gather(const uint32_t* bits, const float* w, const T* v_in, T* v_out,
-           long long n_tasks, int C_in, int n_win, int H, int W, int C_out,
+int gather(const uint32_t* bits, const int32_t* mult, const int32_t* flags,
+           const float* w, const T* v_in, T* v_out, long long n_tasks,
+           int C_in, int n_win, int H, int W, int C_out,
            cudaStream_t stream) {
   const size_t smem = spike_accum::gather_smem<K, Cells>(n_win, H, W);
   if (smem > (size_t)spike_accum::kSmemMax) return (int)cudaErrorInvalidValue;
@@ -134,26 +167,28 @@ int gather(const uint32_t* bits, const float* w, const T* v_in, T* v_out,
             (C_out + kTile - 1) / kTile);
   event_accum_gather_kernel<K, T, Cells, Split>
       <<<grid, spike_accum::gather_warps<K, Cells, Split>() * 32, smem,
-         stream>>>(bits, w, v_in, v_out, (int)n_tasks, C_in, n_win, H, W,
-                   C_out);
+         stream>>>(bits, mult, flags, w, v_in, v_out, (int)n_tasks, C_in,
+                   n_win, H, W, C_out);
   return (int)cudaGetLastError();
 }
 
 template <int K, typename T>
 int launch(const void* words, const void* counts, const void* w,
-           const void* v_in, void* v_out, void* bits, int N,
-           long long words_stride, long long counts_stride, int C_in, int D,
-           int n_win, int nbits, int H, int W, int C_out,
-           cudaStream_t stream) {
+           const void* v_in, void* v_out, void* bits, void* mult,
+           void* flags, int N, long long words_stride,
+           long long counts_stride, int C_in, int D, int n_win, int nbits,
+           int H, int W, int C_out, cudaStream_t stream) {
   const int n_cells = N * C_in;
   const int NW = (n_win * n_win + 31) / 32;
   uint32_t* b = static_cast<uint32_t*>(bits);
+  int32_t* mu = static_cast<int32_t*>(mult);
+  int32_t* fl = static_cast<int32_t*>(flags);
   event_accum_decode_kernel<K>
       <<<(n_cells + kWarps - 1) / kWarps, kWarps * 32,
          sizeof(uint32_t) * kWarps * K * K * NW, stream>>>(
           static_cast<const int32_t*>(words),
-          static_cast<const int32_t*>(counts), b, words_stride, counts_stride,
-          n_cells, C_in, D, n_win, nbits);
+          static_cast<const int32_t*>(counts), b, mu, fl, words_stride,
+          counts_stride, n_cells, C_in, D, n_win, nbits);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   const long long n_tasks =
@@ -164,23 +199,23 @@ int launch(const void* words, const void* counts, const void* w,
   const T* vi = static_cast<const T*>(v_in);
   T* vo = static_cast<T*>(v_out);
   if (blocks < sm_count())
-    return gather<K, T, kFewCells, true>(b, wf, vi, vo, n_tasks, C_in, n_win,
-                                         H, W, C_out, stream);
-  return gather<K, T, kWarps, false>(b, wf, vi, vo, n_tasks, C_in, n_win, H,
-                                     W, C_out, stream);
+    return gather<K, T, kFewCells, true>(b, mu, fl, wf, vi, vo, n_tasks,
+                                         C_in, n_win, H, W, C_out, stream);
+  return gather<K, T, kWarps, false>(b, mu, fl, wf, vi, vo, n_tasks, C_in,
+                                     n_win, H, W, C_out, stream);
 }
 
 template <typename T>
 int launch_k(int K, const void* words, const void* counts, const void* w,
-             const void* v_in, void* v_out, void* bits, int N,
-             long long words_stride, long long counts_stride, int C_in,
-             int D, int n_win, int nbits, int H, int W, int C_out,
-             cudaStream_t s) {
+             const void* v_in, void* v_out, void* bits, void* mult,
+             void* flags, int N, long long words_stride,
+             long long counts_stride, int C_in, int D, int n_win, int nbits,
+             int H, int W, int C_out, cudaStream_t s) {
   switch (K) {
-    case 1: return launch<1, T>(words, counts, w, v_in, v_out, bits, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
-    case 3: return launch<3, T>(words, counts, w, v_in, v_out, bits, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
-    case 5: return launch<5, T>(words, counts, w, v_in, v_out, bits, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
-    case 7: return launch<7, T>(words, counts, w, v_in, v_out, bits, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
+    case 1: return launch<1, T>(words, counts, w, v_in, v_out, bits, mult, flags, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
+    case 3: return launch<3, T>(words, counts, w, v_in, v_out, bits, mult, flags, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
+    case 5: return launch<5, T>(words, counts, w, v_in, v_out, bits, mult, flags, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
+    case 7: return launch<7, T>(words, counts, w, v_in, v_out, bits, mult, flags, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -192,24 +227,26 @@ extern "C" {
 // words (N, C_in, K*K, D) int32 with row stride words_stride, counts (N,
 // C_in, K*K) int32 with row stride counts_stride, w (K, K, C_in, C_out)
 // fp32, v_in and v_out (N, H, W, C_out), fp32, or bf16 with bf16 != 0;
-// bits (N, C_in, K*K, ceil(n_win^2 / 32)) uint32 scratch, every word
-// written by the decode; N, C_in, C_out >= 1; K in {1, 3, 5, 7}. Returns
-// the first non-zero cudaGetLastError() of its two launches
-// (cudaErrorInvalidValue for another K, or for a map whose staged bits do
-// not fit a block's shared memory).
+// bits (N, C_in, K*K, ceil(n_win^2 / 32)) uint32 and flags (N, C_in)
+// int32 scratch, every word written by the decode; mult (N, C_in, K*K,
+// n_win^2) int32 scratch, written only for flagged cells; N, C_in, C_out
+// >= 1; K in {1, 3, 5, 7}. Returns the first non-zero cudaGetLastError()
+// of its two launches (cudaErrorInvalidValue for another K, or for a map
+// whose staged bits do not fit a block's shared memory).
 int event_accum(const void* words, const void* counts, const void* w,
-                const void* v_in, void* v_out, void* bits, int N,
-                int words_stride, int counts_stride, int C_in, int K, int D,
-                int n_win, int nbits, int H, int W, int C_out, int bf16,
-                void* stream) {
+                const void* v_in, void* v_out, void* bits, void* mult,
+                void* flags, int N, int words_stride, int counts_stride,
+                int C_in, int K, int D, int n_win, int nbits, int H, int W,
+                int C_out, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16 != 0)
-    return launch_k<__nv_bfloat16>(K, words, counts, w, v_in, v_out, bits, N,
-                                   words_stride, counts_stride, C_in, D,
-                                   n_win, nbits, H, W, C_out, s);
-  return launch_k<float>(K, words, counts, w, v_in, v_out, bits, N,
-                         words_stride, counts_stride, C_in, D, n_win, nbits,
-                         H, W, C_out, s);
+    return launch_k<__nv_bfloat16>(K, words, counts, w, v_in, v_out, bits,
+                                   mult, flags, N, words_stride,
+                                   counts_stride, C_in, D, n_win, nbits, H,
+                                   W, C_out, s);
+  return launch_k<float>(K, words, counts, w, v_in, v_out, bits, mult, flags,
+                         N, words_stride, counts_stride, C_in, D, n_win,
+                         nbits, H, W, C_out, s);
 }
 
 }  // extern "C"

@@ -39,9 +39,12 @@
 // adds over K*K independent sums.
 //
 // B4 reaches the gather from packed AE words instead of occupancy (its own
-// decode pass writes the same kept bits) and with two template arguments
-// B1 and B3 leave at their defaults: Init starts each sum from the
-// membrane v_in instead of 0, and the membrane's type T sets the rounding
+// decode pass writes the same kept bits) and with template arguments B1
+// and B3 leave at their defaults: Init starts each sum from the
+// membrane v_in instead of 0, Mult adds a kept position once per live word
+// that names it where the decode flagged a repeat (the flag is read once a
+// chunk, the multiplicities only for flagged channels), and the
+// membrane's type T sets the rounding
 // (bf16: every add is __float2bfloat16_rn of the fp32 sum, widened back;
 // fp32's 24 bits are more than 2 * 8 + 2, so that double rounding is the
 // correctly rounded bf16 sum). For grids too small to cover the SMs (B4's
@@ -203,6 +206,90 @@ __device__ __forceinline__ void add_rows(float* acc, const unsigned* m,
   }
 }
 
+// B4's path for a channel whose queues repeat a position: the same adds in
+// the same order as add_rows, each position's weight added as many times as
+// live words name it (mq: the channel's multiplicities, K*K*n_win^2, 0
+// where no live word names a position), back to back. The phase loop stays
+// rolled and each phase's K loads go out together, so this rare path costs
+// little code and few registers (the common path's speed rests on them):
+// weights come from the staged chunk (wc: the lane's output channel of the
+// channel's K*K weights, CC * kTile apart), and only the pixel index of a
+// sum is a compile-time constant.
+template <int K, typename T, bool Split, int I = 0>
+__device__ __forceinline__ void add_rows_repeated(float* acc,
+                                                  const int32_t* mq,
+                                                  const float* wc, int i0,
+                                                  int a, int b, int n_win) {
+  if constexpr (I < K) {
+    if (!Split || i0 == I) {
+      float* row = Split ? acc : acc + I * K;
+#pragma unroll 1
+      for (int ph = 0; ph < K * K; ++ph) {
+        const int ky = ph / K, kx = ph % K;
+        const int wy = a + cell_of<K>(I, ky);
+        if (wy < 0 || wy >= n_win) continue;
+        int times[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const int wx = b + cell_of<K>(j, kx);
+          times[j] = wx < 0 || wx >= n_win
+                         ? 0 : mq[(ph * n_win + wy) * n_win + wx];
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const float wv = wc[(offset_of<K>(I, ky) * K + offset_of<K>(j, kx))
+                              * chunk_channels<K>() * kTile];
+          for (int r = 0; r < times[j]; ++r)
+            row[j] = add_rounded<T>(row[j], wv);
+        }
+      }
+    }
+    add_rows_repeated<K, T, Split, I + 1>(acc, mq, wc, i0, a, b, n_win);
+  }
+}
+
+// One staged chunk's adds into a warp's sums: the channels c < live in
+// order, each broadcast from lane c's neighbourhood bits nb, its K*K
+// weights read from the chunk wb ([K*K][CC][kTile]). WithRepeats (B4, a
+// chunk holding a channel whose queues repeat a position): the channels
+// set in `repeats` take add_rows_repeated with their multiplicities (mq:
+// the chunk's first channel's, K*K*n_win^2 apart); the others, and every
+// chunk without such a channel, run the same adds as B1 and B3.
+template <int K, typename T, bool Split, bool WithRepeats>
+__device__ __forceinline__ void add_chunk(float* acc, const unsigned* nb,
+                                          const float* wb, int live, int i0,
+                                          unsigned repeats = 0u,
+                                          const int32_t* mq = nullptr,
+                                          int a = 0, int b = 0,
+                                          int n_win = 0) {
+  constexpr int K2 = K * K, CC = chunk_channels<K>();
+  constexpr int NB = (K2 + 2) / 3;
+  const int lane = threadIdx.x & 31;
+  for (int c = 0; c < live; ++c) {
+    unsigned m[NB];
+    unsigned mc = 0u;
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      m[q] = __shfl_sync(0xffffffffu, nb[q], c);
+      mc |= m[q];
+    }
+    if (mc == 0u) continue;  // warp-uniform
+    if constexpr (WithRepeats) {
+      if ((repeats >> c) & 1u) {  // warp-uniform
+        add_rows_repeated<K, T, Split>(acc, mq + c * K2 * n_win * n_win,
+                                       wb + c * kTile + lane, i0, a, b,
+                                       n_win);
+        continue;
+      }
+    }
+    float wr[K2];
+#pragma unroll
+    for (int kk = 0; kk < K2; ++kk)
+      wr[kk] = wb[(kk * CC + c) * kTile + lane];
+    add_rows<K, T, Split>(acc, m, wr, i0);
+  }
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
@@ -265,15 +352,20 @@ __device__ __forceinline__ void encode(
 // (row t / cells when order is null), cells = ceil(H / K) * ceil(W / K).
 // cell_tot, when given, skips a lane's empty cells. Scaled multiplies each
 // sum by w_scale[0]. Init starts each sum from v_in (same layout as out);
-// every add is rounded to T, the type of v_in and out.
+// every add is rounded to T, the type of v_in and out. Mult (B4): a (row,
+// channel) cell whose flags entry is set takes its kept positions'
+// multiplicities from mult (rows, C_in, K*K, n_win^2); other cells add
+// each kept position once and read no multiplicity.
 template <int K, bool Scaled, bool Init = false, typename T = float,
-          int Cells = kWarps, bool Split = false>
+          int Cells = kWarps, bool Split = false, bool Mult = false>
 __device__ __forceinline__ void gather(
     const uint32_t* __restrict__ bits, const float* __restrict__ w,
     const float* __restrict__ w_scale, const int32_t* __restrict__ cell_tot,
     const int32_t* __restrict__ order, T* __restrict__ out, int n_tasks,
     int C_in, int n_win, int H, int W, int C_out,
-    const T* __restrict__ v_in = nullptr) {
+    const T* __restrict__ v_in = nullptr,
+    const int32_t* __restrict__ mult = nullptr,
+    const int32_t* __restrict__ flags = nullptr) {
   constexpr int K2 = K * K, CC = chunk_channels<K>();
   constexpr int NB = (K2 + 2) / 3;  // neighbourhood words, 3 phases each
   extern __shared__ __align__(16) unsigned char smem[];
@@ -348,6 +440,9 @@ __device__ __forceinline__ void gather(
   const int n_chunks = (C_in + CC - 1) / CC;
   stage(0);
   for (int s = 0; s < n_chunks; ++s) {
+    // this lane's channel's repeat flag, loaded before the chunk's wait
+    const bool flagged = Mult && task && s * CC + lane < C_in
+                         && flags[(size_t)row * C_in + s * CC + lane] != 0;
     if (s + 1 < n_chunks) {
       stage(s + 1);
       cp_async_wait<1>();
@@ -388,22 +483,16 @@ __device__ __forceinline__ void gather(
     unsigned any = 0u;
 #pragma unroll
     for (int q = 0; q < NB; ++q) any |= nb[q];
+    unsigned repeats = 0u;
+    if constexpr (Mult) repeats = __ballot_sync(0xffffffffu, flagged);
     if (__any_sync(0xffffffffu, any != 0u)) {
-      for (int c = 0; c < live; ++c) {
-        unsigned m[NB];
-        unsigned mc = 0u;
-#pragma unroll
-        for (int q = 0; q < NB; ++q) {
-          m[q] = __shfl_sync(0xffffffffu, nb[q], c);
-          mc |= m[q];
-        }
-        if (mc == 0u) continue;  // warp-uniform
-        float wr[K2];
-#pragma unroll
-        for (int kk = 0; kk < K2; ++kk)
-          wr[kk] = wb[(kk * CC + c) * kTile + lane];
-        add_rows<K, T, Split>(acc, m, wr, i0);
-      }
+      if (Mult && repeats != 0u)  // warp-uniform: a channel here repeats
+        add_chunk<K, T, Split, Mult>(
+            acc, nb, wb, live, i0, repeats,
+            mult + ((size_t)row * C_in + c0) * K2 * n_win * n_win, a, b,
+            n_win);
+      else
+        add_chunk<K, T, Split, false>(acc, nb, wb, live, i0);
     }
     __syncthreads();  // the next stage overwrites this chunk's buffer
   }

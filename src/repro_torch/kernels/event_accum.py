@@ -9,26 +9,32 @@ weights and every add rounded to bf16 — an event of channel ``c`` at
 for every in-bounds offset. Slot ``d`` of queue (c, ph) is live when its
 window row decodes below ``n_win`` and ``d < counts[c, ph]``, as in the TPU
 kernel (the uncompressed format's invalid word decodes to row 0, so the
-count is what kills it). Both return a new membrane; the input is kept.
+count is what kills it). A live word whose window column is past the grid
+(``j_c >= n_win``) adds nothing, as the reference's scatter drops it, and
+a live word that repeats a position adds once per occurrence. Both return
+a new membrane; the input is kept.
 
 - :func:`event_accum_cuda` — the CUDA kernel ``csrc/event_accum.cu``
   (replaces the Pallas TPU kernel ``event_accum``): a decode of the live
-  words into packed kept bits (:func:`event_bits_plain` is its plain
-  version), then the gather of ``csrc/spike_accum.cuh`` starting from the
-  membrane;
+  words into packed kept bits and, for a (n, c) cell whose queues repeat a
+  position, the multiplicity of each position (:func:`event_bits_plain`
+  and :func:`event_mult_plain` are its plain versions), then the gather of
+  ``csrc/spike_accum.cuh`` starting from the membrane;
 - :func:`event_accum_plain` — the reference ``event_conv2d``'s order:
   offset by offset, every live event in (n, c, phase, slot) order.
 
 The kernel adds into each output in (c, phase) order instead — the order of
-``ref.fused_spike_accum_ordered_ref`` with ``init=v_mem``, which it equals
-bit for bit — so on Gaussian weights it and the plain version agree to
-rounding, not bit for bit; on dyadic weights every sum is exact and they
-are equal. ``kernels.ops.event_accum`` picks between them by the tensor's
+``ref.fused_spike_accum_ordered_ref`` with ``init=v_mem`` (on the
+multiplicities, with ``multiplicity=True``, where a queue repeats a
+position), which it equals bit for bit — so on Gaussian weights it and the
+plain version agree to rounding, not bit for bit; on dyadic weights every
+sum is exact and they are equal. ``kernels.ops.event_accum`` picks between them by the tensor's
 device.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -37,17 +43,24 @@ from . import _cuda
 from .spike_pipeline import check_gather_fits
 
 
-def _live_events(words, counts, K, n_win, bits):
-    """(n, c, y, x) of the live slots, in (n, c, phase, slot) order."""
-    D = words.shape[-1]
+def _decode(words, counts, n_win, bits):
+    """Window coordinates (i_c, j_c) of every slot, and which slots are live
+    and name a grid position."""
     mask = (1 << bits) - 1
     i_c = (words >> bits) & mask
-    slot = torch.arange(D, dtype=torch.int32, device=words.device)
-    live = (i_c < n_win) & (slot < counts[..., None])
+    j_c = words & mask
+    slot = torch.arange(words.shape[-1], dtype=torch.int32,
+                        device=words.device)
+    live = (i_c < n_win) & (j_c < n_win) & (slot < counts[..., None])
+    return i_c, j_c, live
+
+
+def _live_events(words, counts, K, n_win, bits):
+    """(n, c, y, x) of the live slots, in (n, c, phase, slot) order."""
+    i_c, j_c, live = _decode(words, counts, n_win, bits)
     n, c, ph, d = torch.nonzero(live, as_tuple=True)
-    word = words[n, c, ph, d]
-    y = ((word >> bits) & mask) * K + ph // K
-    x = (word & mask) * K + ph % K
+    y = i_c[n, c, ph, d] * K + ph // K
+    x = j_c[n, c, ph, d] * K + ph % K
     return n, c, y, x
 
 
@@ -100,26 +113,32 @@ def pack_bits(kept):
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
 
 
+def event_mult_plain(words, counts, *, n_win, bits):
+    """The multiplicities of ``csrc/event_accum.cu``'s decode: (..., C_in,
+    K², D) words with their counts -> (..., C_in, K², n_win²) int32, how
+    many live slots name window position i_c * n_win + j_c (a live word
+    with j_c >= n_win names none). With ``multiplicity=True``,
+    ``ref.fused_spike_accum_ordered_ref`` on it (``depth`` = n_win²) is B4's
+    order of adds."""
+    P = n_win * n_win
+    i_c, j_c, live = _decode(words, counts, n_win, bits)
+    pos = torch.where(live, i_c * n_win + j_c, P).long()
+    mult = torch.zeros((*words.shape[:-1], P + 1), dtype=torch.int32,
+                       device=words.device)
+    mult.scatter_add_(-1, pos, live.to(torch.int32))   # dead slots: spare P
+    return mult[..., :P].contiguous()
+
+
 def event_bits_plain(words, counts, *, n_win, bits):
     """The decode pass of ``csrc/event_accum.cu``: (..., C_in, K², D) words
     with their counts -> (..., C_in, K², ceil(n_win² / 32)) packed bits of
-    the window positions i_c * n_win + j_c that live slots name (a live
-    word with j_c >= n_win names none)."""
-    D = words.shape[-1]
-    P = n_win * n_win
-    mask = (1 << bits) - 1
-    i_c = (words >> bits) & mask
-    j_c = words & mask
-    slot = torch.arange(D, dtype=torch.int32, device=words.device)
-    live = (i_c < n_win) & (j_c < n_win) & (slot < counts[..., None])
-    pos = torch.where(live, i_c * n_win + j_c, P).long()
-    kept = torch.zeros((*words.shape[:-1], P + 1), dtype=torch.bool,
-                       device=words.device)
-    kept.scatter_(-1, pos, live)           # dead slots all land in spare P
-    return pack_bits(kept[..., :P])
+    the window positions that live slots name (:func:`event_mult_plain`
+    above zero)."""
+    return pack_bits(event_mult_plain(words, counts, n_win=n_win,
+                                      bits=bits) > 0)
 
 
-_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 12
+_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 12
              + (ctypes.c_void_p,))
 
 
@@ -132,7 +151,9 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits,
     ``words`` and ``counts`` may be a step's slice of a larger queue (a
     stride between rows); within a row they must be contiguous. The decode
     writes its packed bits into ``bits_out`` ((N, C_in, K², ceil(n_win² /
-    32)) int32) when given, else into scratch.
+    32)) int32) when given, else into scratch. Its repeat flags and
+    multiplicities go to scratch that no one clears: the decode writes a
+    flag for every cell, and multiplicities only for the flagged ones.
     """
     tensors = (words, counts, weights, v_mem)
     dev = v_mem.device
@@ -172,14 +193,19 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits,
             and weights.is_contiguous() and v_mem.is_contiguous()):
         raise ValueError("words and counts must be contiguous within a row; "
                          "weights and v_mem contiguous")
-    scratch = words.new_empty(shape) if bits_out is None else bits_out
+    # one int32 allocation: the bits (unless given), the flags (N, C_in),
+    # then the multiplicities (N, C_in, K², n_win²)
+    n_bits = 0 if bits_out is not None else math.prod(shape)
+    scratch = words.new_empty(n_bits + N * C_in * (1 + K2 * n_win * n_win))
+    flags = scratch.data_ptr() + 4 * n_bits
     w = weights.float()                    # bf16 widens exactly
     fn = _cuda.kernel_fn("event_accum", "event_accum", _ARGTYPES)
     _cuda.launch_counts["event_accum"] += 1
     err = fn(words.data_ptr(), counts.data_ptr(), w.data_ptr(),
-             v_mem.data_ptr(), out.data_ptr(), scratch.data_ptr(), N,
-             words.stride(0), counts.stride(0), C_in, K, D, n_win, bits, H,
-             W, C_out, int(v_mem.dtype == torch.bfloat16),
-             _cuda.stream_ptr(dev))
+             v_mem.data_ptr(), out.data_ptr(),
+             (scratch if bits_out is None else bits_out).data_ptr(),
+             flags + 4 * N * C_in, flags, N, words.stride(0),
+             counts.stride(0), C_in, K, D, n_win, bits, H, W, C_out,
+             int(v_mem.dtype == torch.bfloat16), _cuda.stream_ptr(dev))
     _cuda.check_launch(err, "event_accum")
     return out

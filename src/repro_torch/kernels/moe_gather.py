@@ -6,8 +6,9 @@ token index per slot; an index of -1 (any negative one) gives a zero row:
 
 - :func:`moe_gather_cuda` — the CUDA kernel ``csrc/moe_gather.cu``
   (replaces the Pallas TPU kernel ``moe_gather``): rows copied as raw
-  bytes, in the widest vectors (up to 16 bytes) the row size and the
-  pointers allow;
+  bytes, by bulk copies through shared memory where a row is longer than
+  512 bytes and its size and both pointers are 16-byte aligned, else by a
+  warp in the widest vectors they allow;
 - :func:`moe_gather_plain` — an index and a ``where``.
 
 A copy is exact, so the two agree bit for bit. Indices past the last row

@@ -4,7 +4,9 @@ Port of ``repro.kernels.quant_matmul``. Both functions return
 ``float(a_q @ b_q) * (a_scale * b_scale)`` with an exact integer product:
 
 - :func:`quant_matmul_cuda` — the CUDA kernel ``csrc/quant_matmul.cu``
-  (replaces the Pallas TPU kernel ``quant_matmul``), dp4a into int32;
+  (replaces the Pallas TPU kernel ``quant_matmul``): K split across the
+  blocks of a thread-block cluster, int8 tensor-core products into int32,
+  the partials summed in the cluster leader's shared memory, one launch;
 - :func:`quant_matmul_plain` — the same integer product as int32 products
   summed over K in int32 (CUDA has no integer ``torch.matmul``), exact
   while K * 128**2 < 2**31, then the same fp32 dequant.

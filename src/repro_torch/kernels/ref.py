@@ -57,7 +57,7 @@ def fused_spike_accum_ref(occ, weights, *, K, n_win, depth, H, W):
 
 
 def fused_spike_accum_ordered_ref(occ, weights, *, K, n_win, depth, H, W,
-                                  init=None):
+                                  init=None, multiplicity=False):
     """The fused accumulate with the (c, phase) order of adds of B1, B3 and
     B4.
 
@@ -70,11 +70,17 @@ def fused_spike_accum_ordered_ref(occ, weights, *, K, n_win, depth, H, W,
     perform for each output (adding 0 changes no partial sum), from 0 (B1,
     B3) or, with ``init`` (N, H, W, C_out) in the weights' dtype, from the
     membrane (B4).
+
+    With ``multiplicity`` the values of ``occ`` are how many live words name
+    each position (``event_accum.event_mult_plain``): a kept position adds
+    its weight that many times, back to back in its (c, phase) turn, as B4
+    adds a repeated live word once per occurrence.
     """
     N, C_in, K2, P = occ.shape
     fired = occ > 0
     slot = torch.cumsum(fired.to(torch.int32), dim=-1) - 1
     kept = (fired & (slot < depth)).reshape(N, C_in, K2, n_win, n_win)
+    reps = occ.reshape(N, C_in, K2, n_win, n_win)
     dev, pad, side = occ.device, K // 2, n_win * K
     out = (torch.zeros((N, H, W, weights.shape[-1]), dtype=weights.dtype,
                        device=dev) if init is None else init)
@@ -97,6 +103,10 @@ def fused_spike_accum_ordered_ref(occ, weights, *, K, n_win, depth, H, W,
                    & oky[:, None] & okx[None, :])          # (N, H, W)
             w = weights[dy[:, None], dx[None, :], c]         # (H, W, C_out)
             out = out + torch.where(hit[..., None], w, zero)
+            if multiplicity:
+                times = torch.where(hit, reps[:, c, ph][:, wy][:, :, wx], 0)
+                for k in range(1, int(times.max())):
+                    out = out + torch.where((times > k)[..., None], w, zero)
     return out
 
 
@@ -135,7 +145,10 @@ def event_accum_ref(words, counts, weights, v_mem, *, K, n_win, bits):
     words (C_in, K2, D) int32, counts (C_in, K2), weights (K, K, C_in,
     C_out), v_mem (H, W, C_out). A slot is live when its window row is in
     range and it lies below its queue's count — the identity
-    event_conv2d(AEQ(map)) == conv2d(map) the design rests on.
+    event_conv2d(AEQ(map)) == conv2d(map) the design rests on. A live word
+    whose window column is past the grid (j_c >= n_win) adds nothing, as
+    the reference's scatter drops its out-of-range x; a repeated live word
+    adds once per occurrence.
     """
     C_in, K2, D = words.shape
     H, W, C_out = v_mem.shape
@@ -143,7 +156,7 @@ def event_accum_ref(words, counts, weights, v_mem, *, K, n_win, bits):
     i_c = (words >> bits) & mask
     j_c = words & mask
     slot = torch.arange(D, dtype=torch.int32, device=words.device)
-    valid = (i_c < n_win) & (slot < counts[..., None])
+    valid = (i_c < n_win) & (j_c < n_win) & (slot < counts[..., None])
     ph = torch.arange(K2, dtype=torch.int32, device=words.device)[:, None]
     c, y, x = (a[valid] for a in (
         torch.arange(C_in, device=words.device)[:, None, None].expand_as(i_c),

@@ -24,12 +24,18 @@ from repro_torch.kernels import spike_compact as sc
 from repro_torch.kernels import spike_pipeline as sp
 from repro_torch.kernels import spike_sparse as ss
 
+from _torch_queues import repeated_queues
+
 B1_SHAPES = [  # (hw, c_in, c_out, depth), as tests/test_torch_kernels.py
     (9, 1, 8, 16), (12, 3, 16, 4), (28, 4, 32, 64), (10, 2, 8, 2),
     (6, 1, 4, 16), (9, 2, 8, 4), (10, 1, 8, 3), (32, 3, 40, 64),
 ]
 B2_SHAPES = [(16, 32, 8), (100, 200, 60), (128, 128, 128), (130, 257, 64),
-             (1, 1152, 10), (64, 1152, 10)]
+             (1, 1152, 10), (64, 1152, 10),
+             # the head's buckets past a 16-row tile, ragged K, the square
+             # shape of kernel_bench, and K and N below one mma tile
+             (3, 1152, 10), (17, 1153, 10), (65, 1152, 10), (256, 256, 256),
+             (5, 31, 3)]
 B4_SHAPES = [  # (hw, c_in, c_out, depth): tests/test_torch_word.py, + 32x32
     (9, 1, 8, 16), (12, 3, 16, 32), (28, 4, 32, 64), (28, 2, 128, 24),
     (10, 3, 8, 4), (32, 3, 40, 64)]
@@ -48,7 +54,10 @@ B4_GATHER_SHAPES = [  # (hw, c_in, c_out, depth, K, rows): K in {1, 3, 5, 7},
     (11, 2, 8, 3, 5, 3), (20, 3, 16, 64, 5, 3), (14, 2, 8, 2, 7, 3),
     (28, 3, 40, 64, 7, 3), (64, 32, 32, 64, 3, 2), (64, 8, 40, 16, 3, 3)]
 B6_SHAPES = [(16, 8, 12), (64, 32, 50), (10, 128, 40), (1024, 128, 512),
-             (7, 3, 9)]
+             (7, 3, 9),
+             # rows of 148 / 74 / 37 bytes (no 16-byte unit), and rows of
+             # 512 B to 2 KiB over 8192 slots (the bulk path's ring turns)
+             (9, 37, 21), (4096, 512, 8192)]
 
 
 @pytest.fixture
@@ -83,11 +92,15 @@ def test_fused_spike_accum_kernel_matches_plain(cuda, hw, c_in, c_out, depth):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", B2_SHAPES)
 def test_quant_matmul_kernel_bit_exact(cuda, m, k, n):
+    """Bit-exact against the oracle at any M, K, N (masked in the kernel),
+    in one launch."""
     rng = np.random.default_rng(m + k + n)
     a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
     b = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
     sa, sb = torch.tensor(0.013), torch.tensor(0.021)
-    got = qm.quant_matmul_cuda(*(t.to(cuda) for t in (a, b, sa, sb)))
+    ops.reset_launch_counts()
+    got = ops.quant_matmul(*(t.to(cuda) for t in (a, b, sa, sb)))
+    assert ops.launch_counts["quant_matmul"] == 1
     assert torch.equal(got.cpu(), ref.quant_matmul_ref(a, b, sa, sb))
 
 
@@ -503,6 +516,73 @@ def test_moe_gather_kernel_bit_exact(cuda, t, d, s, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, mg.moe_gather_plain(x, idx))
     assert torch.equal(got, ref.moe_gather_ref(x, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_moe_gather_kernel_all_slots_empty(cuda, dtype):
+    """Every index negative: zero rows only. At d = 1024 every dtype's row
+    is 1 KiB or more in 16-byte units (the bulk path); at d = 100 the rows
+    of 400, 200 and 100 bytes take the warp copy."""
+    for t, d, s in ((64, 1024, 300), (64, 100, 70)):
+        x = torch.ones((t, d), dtype=dtype, device=cuda)
+        idx = torch.full((s,), -1, dtype=torch.int32, device=cuda)
+        ops.reset_launch_counts()
+        got = ops.moe_gather(x, idx)
+        assert ops.launch_counts["moe_gather"] == 1
+        torch.cuda.synchronize()
+        assert got.shape == (s, d) and not got.any()
+
+
+B4_REPEAT_SHAPES = [  # (hw, K, c_in, c_out, rows): K in {1, 3, 5, 7}, both
+    # AE formats, two channel chunks, and a 3x3 stage (2-cell blocks)
+    (9, 3, 2, 8, 3), (12, 3, 3, 40, 3), (32, 3, 40, 40, 8), (3, 3, 64, 128, 64),
+    (7, 1, 2, 8, 3), (4, 1, 3, 8, 3), (15, 5, 2, 8, 3), (20, 5, 2, 8, 3),
+    (21, 7, 2, 8, 3), (28, 7, 2, 8, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,K,c_in,c_out,rows", B4_REPEAT_SHAPES)
+def test_event_accum_kernel_repeated_words(cuda, hw, K, c_in, c_out, rows):
+    """B4 on queues that repeat positions (and, where the format leaves
+    room, hold off-grid words): fp32 and bf16 on Gaussian weights equal the
+    (c, phase)-ordered oracle on the decode's multiplicities bit for bit
+    (each occurrence added, back to back); dyadic weights equal the plain
+    version bit for bit; every row equals its launch alone."""
+    fmt = make_format(hw, K)
+    words, counts = repeated_queues(fmt, rows, c_in, 24, hw + K + c_in,
+                                    off_grid=fmt.n_win < 1 << fmt.bits_coord)
+    words, counts = words.to(cuda), counts.to(cuda)
+    rng = np.random.default_rng(hw * K + rows)
+    w = torch.from_numpy(rng.normal(size=(K, K, c_in, c_out))
+                         .astype(np.float32)).to(cuda)
+    vm = torch.from_numpy(rng.normal(size=(rows, hw, hw, c_out))
+                          .astype(np.float32)).to(cuda)
+    kw = dict(K=K, n_win=fmt.n_win, bits=fmt.bits_coord)
+    okw = dict(K=K, n_win=fmt.n_win, depth=fmt.n_win ** 2, H=hw, W=hw,
+               multiplicity=True)
+    mult = ea.event_mult_plain(words, counts, n_win=fmt.n_win,
+                               bits=fmt.bits_coord)
+    assert int(mult.max()) >= 2
+    ops.reset_launch_counts()
+    got = ops.event_accum(words, counts, w, vm, **kw)
+    assert ops.launch_counts["event_accum"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.fused_spike_accum_ordered_ref(
+        mult, w, init=vm, **okw))
+    for n in range(min(rows, 4)):
+        one = ea.event_accum_cuda(words[n:n + 1], counts[n:n + 1], w,
+                                  vm[n:n + 1].contiguous(), **kw)
+        assert torch.equal(one[0], got[n])
+    w16, vm16 = w.bfloat16(), vm.bfloat16()
+    got16 = ea.event_accum_cuda(words, counts, w16, vm16, **kw)
+    assert torch.equal(got16, ref.fused_spike_accum_ordered_ref(
+        mult, w16, init=vm16, **okw))
+    w_dy = torch.round(w * 64) / 256
+    vm_dy = torch.round(vm * 16) / 16
+    assert torch.equal(ea.event_accum_cuda(words, counts, w_dy, vm_dy, **kw),
+                       ea.event_accum_plain(words, counts, w_dy, vm_dy, **kw))
 
 
 @pytest.mark.cuda

@@ -41,6 +41,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import spike_compact as tsc
 
 from _torch_nets import dyadic_net, images
+from _torch_queues import repeated_queues
 
 EA_SHAPES = [  # (hw, c_in, c_out, depth): tests/test_kernels.py, + hw=10
     (9, 1, 8, 16), (12, 3, 16, 32), (28, 4, 32, 64), (28, 2, 128, 24),
@@ -445,6 +446,173 @@ def test_ordered_oracle_without_init_starts_from_zero(dtype):
     assert torch.equal(base, tref.fused_spike_accum_ordered_ref(
         occ, w, init=zero, **kw))
     assert not zero.any()
+
+
+# --- words the engine never writes: off the grid, or repeated ---------------
+#
+# fp32 tolerance 1e-5 on Gaussian weights, relative to the output's sum of
+# magnitudes |v| + sum |w| over its adds: the JAX oracle convolves (XLA's
+# order of adds), the port's plain version and ordered oracle add event by
+# event, and a K = 7 output can cancel hundreds of terms. Dyadic weights
+# make every sum exact, so those are held bit for bit.
+
+# (hw, K, compressed): n_win not a power of two, so a window coordinate can
+# name a column past the grid (K = 3, W = 9: n_win 3, bits 2), in the
+# compressed format and with the original encoding's status bits forced
+OFF_GRID_FORMATS = [(9, 3, True), (9, 3, False), (7, 1, True), (15, 5, True),
+                    (21, 7, True)]
+# (hw, K) per K in {1, 3, 5, 7}: the compressed format (n_win 7 or 3) and
+# the uncompressed fallback (n_win 4), whose invalid word decodes to (0, 0)
+REPEAT_FORMATS = [(7, 1), (4, 1), (9, 3), (12, 3), (15, 5), (20, 5),
+                  (21, 7), (28, 7)]
+
+
+def _jax_event_accum(words, counts, w, vm, **kw):
+    """The JAX oracle row by row, as numpy."""
+    return np.stack([np.asarray(jref.event_accum_ref(
+        jnp.asarray(words[n].numpy()), jnp.asarray(counts[n].numpy()),
+        jnp.asarray(w.numpy()), jnp.asarray(vm[n].numpy()), **kw))
+        for n in range(words.shape[0])])
+
+
+def _assert_held(got, want, dyadic, words, counts, w, vm, **kw):
+    if dyadic:
+        np.testing.assert_array_equal(got, want)
+        return
+    mag = tea.event_accum_plain(words, counts, w.abs(), vm.abs(), **kw)
+    err = np.abs(got - want)
+    assert (err <= 1e-5 * (1 + mag.reshape(want.shape).numpy())).all(), \
+        float(err.max())
+
+
+def _membrane_and_weights(rng, N, hw, K, c_in, c_out, dyadic):
+    if dyadic:
+        w = rng.integers(-128, 128, (K, K, c_in, c_out)) / 256.0
+        vm = np.round(rng.normal(size=(N, hw, hw, c_out)) * 16) / 16
+    else:
+        w = rng.normal(size=(K, K, c_in, c_out))
+        vm = rng.normal(size=(N, hw, hw, c_out))
+    return (torch.from_numpy(w.astype(np.float32)),
+            torch.from_numpy(vm.astype(np.float32)))
+
+
+@pytest.mark.parametrize("hw,K,compressed", OFF_GRID_FORMATS)
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_off_grid_words_match_reference(hw, K, compressed, dyadic):
+    """Live words with j_c >= n_win or i_c >= n_win beside grid words and
+    the format's invalid words: B4's plain version, the port's oracle and
+    ``ops.event_accum`` (CPU) add what the JAX oracle adds (its scatter
+    drops the out-of-range column), and nothing raises."""
+    fmt = tenc.make_format(hw, K, compressed=compressed)
+    assert fmt.compressed == compressed and fmt.n_win < 1 << fmt.bits_coord
+    N, c_in, c_out, D = 2, 3, 8, 12
+    rng = np.random.default_rng(hw + K + compressed)
+    coords = rng.integers(0, 1 << fmt.bits_coord, (N, c_in, K * K, D, 2))
+    words = (coords[..., 0] << fmt.bits_coord) | coords[..., 1]
+    counts = rng.integers(0, D + 1, (N, c_in, K * K))
+    live = np.arange(D) < counts[..., None]
+    words = np.where(live | (rng.random(words.shape) < 0.5), words,
+                     fmt.invalid_word)
+    off = live & (coords[..., 1] >= fmt.n_win) & (coords[..., 0] < fmt.n_win)
+    assert off.any()                    # the repaired case is exercised
+    words = torch.from_numpy(words.astype(np.int32))
+    counts = torch.from_numpy(counts.astype(np.int32))
+    w, vm = _membrane_and_weights(rng, N, hw, K, c_in, c_out, dyadic)
+    kw = dict(K=K, n_win=fmt.n_win, bits=fmt.bits_coord)
+    want = _jax_event_accum(words, counts, w, vm, **kw)
+    held = dict(dyadic=dyadic, words=words, counts=counts, w=w, vm=vm, **kw)
+    _assert_held(tea.event_accum_plain(words, counts, w, vm, **kw).numpy(),
+                 want, **held)
+    _assert_held(tops.event_accum(words, counts, w, vm, **kw).numpy(), want,
+                 **held)
+    got = torch.stack([tref.event_accum_ref(words[n], counts[n], w, vm[n],
+                                            **kw) for n in range(N)])
+    _assert_held(got.numpy(), want, **held)
+
+
+def test_off_grid_word_adds_nothing():
+    """K = 3, W = 9 (n_win 3, bits 2): one live word (1, 3) on unit weights
+    adds nothing in any realization, as in the JAX oracle."""
+    fmt = tenc.make_format(9, 3)
+    words = torch.tensor([[[[(1 << 2) | 3]] + [[fmt.invalid_word]] * 8]],
+                         dtype=torch.int32)          # (1, 1, 9, 1)
+    counts = torch.zeros((1, 1, 9), dtype=torch.int32)
+    counts[0, 0, 0] = 1
+    w, vm = torch.ones((3, 3, 1, 2)), torch.zeros((1, 9, 9, 2))
+    kw = dict(K=3, n_win=3, bits=2)
+    assert not _jax_event_accum(words, counts, w, vm, **kw).any()
+    assert not tea.event_accum_plain(words, counts, w, vm, **kw).any()
+    assert not tref.event_accum_ref(words[0], counts[0], w, vm[0], **kw).any()
+    assert not tea.event_mult_plain(words, counts, n_win=3, bits=2).any()
+
+
+@pytest.mark.parametrize("hw,K", REPEAT_FORMATS)
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_repeated_words_mult_and_ordered_gather_match_reference(hw, K,
+                                                                 dyadic):
+    """B4's model of repeated live words: the decode's multiplicities
+    (``event_mult_plain``) followed by the (c, phase)-ordered gather that
+    adds a position's weight once per occurrence equals the JAX oracle,
+    in both AE formats and K in {1, 3, 5, 7}; so does the plain version."""
+    fmt = tenc.make_format(hw, K)
+    assert fmt.compressed == (fmt.n_win != 4)
+    N, c_in, c_out, D = 2, 3, 8, 16
+    words, counts = repeated_queues(fmt, N, c_in, D, seed=hw + K)
+    kw = dict(K=K, n_win=fmt.n_win, bits=fmt.bits_coord)
+    mult = tea.event_mult_plain(words, counts, n_win=fmt.n_win,
+                                bits=fmt.bits_coord)
+    assert 2 <= int(mult.max()) <= 4 and int(mult.sum()) == int(counts.sum())
+    assert torch.equal(tea.event_bits_plain(words, counts, n_win=fmt.n_win,
+                                            bits=fmt.bits_coord),
+                       tea.pack_bits(mult > 0))
+    rng = np.random.default_rng(hw * K)
+    w, vm = _membrane_and_weights(rng, N, hw, K, c_in, c_out, dyadic)
+    want = _jax_event_accum(words, counts, w, vm, **kw)
+    held = dict(dyadic=dyadic, words=words, counts=counts, w=w, vm=vm, **kw)
+    got = tref.fused_spike_accum_ordered_ref(
+        mult, w, K=K, n_win=fmt.n_win, depth=fmt.n_win ** 2, H=hw, W=hw,
+        init=vm, multiplicity=True)
+    _assert_held(got.numpy(), want, **held)
+    _assert_held(tea.event_accum_plain(words, counts, w, vm, **kw).numpy(),
+                 want, **held)
+
+
+@pytest.mark.parametrize("hw,K", REPEAT_FORMATS[2:4])
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_ops_event_accum_repeated_words_match_reference(hw, K, dyadic):
+    """``ops.event_accum`` on the CPU adds a repeated live word once per
+    occurrence, as the JAX oracle does, with and without a batch axis."""
+    fmt = tenc.make_format(hw, K)
+    words, counts = repeated_queues(fmt, 2, 4, 12, seed=hw + 1)
+    rng = np.random.default_rng(hw + 2)
+    w, vm = _membrane_and_weights(rng, 2, hw, K, 4, 16, dyadic)
+    kw = dict(K=K, n_win=fmt.n_win, bits=fmt.bits_coord)
+    want = _jax_event_accum(words, counts, w, vm, **kw)
+    held = dict(dyadic=dyadic, words=words, counts=counts, w=w, vm=vm, **kw)
+    _assert_held(tops.event_accum(words, counts, w, vm, **kw).numpy(), want,
+                 **held)
+    assert torch.equal(tops.event_accum(words[1], counts[1], w, vm[1], **kw),
+                       tops.event_accum(words, counts, w, vm, **kw)[1])
+
+
+def test_repeated_words_ordered_gather_bf16_equals_plain():
+    """In bf16 on a 1/4 grid (every partial sum exact in bf16) the ordered
+    gather with multiplicities equals B4's bf16 plain version bit for bit;
+    the multiplicities are what reach the sum (without them it differs)."""
+    fmt = tenc.make_format(9, 3)
+    words, counts = repeated_queues(fmt, 2, 3, 16, seed=3)
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy((rng.integers(-4, 5, (3, 3, 3, 8)) / 4.0)
+                         .astype(np.float32)).bfloat16()
+    vm = torch.from_numpy((rng.integers(-8, 9, (2, 9, 9, 8)) / 4.0)
+                          .astype(np.float32)).bfloat16()
+    kw = dict(K=3, n_win=3, depth=9, H=9, W=9, init=vm)
+    mult = tea.event_mult_plain(words, counts, n_win=3, bits=2)
+    got = tref.fused_spike_accum_ordered_ref(mult, w, multiplicity=True, **kw)
+    want = tea.event_accum_plain(words, counts, w, vm, K=3, n_win=3, bits=2)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert not torch.equal(tref.fused_spike_accum_ordered_ref(mult, w, **kw),
+                           want)
 
 
 # --- the engine's queue backend and infer ------------------------------------
