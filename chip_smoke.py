@@ -28,19 +28,30 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    case (1/8 of the rows active, ``n_rows`` < N) bit-exact and timed beside
    B1. Each is timed with CUDA events beside its plain version, a library
    call and its bound.
+   Then C3: B1, B3 and B4 at K = 3 on 128x128 and 512x512 maps (past the
+   old staged-bits limit) and at K = 9 and 11 (the rolled gather), each
+   bit-exact against the (c, phase)-ordered oracle (B4 also in bf16 and on
+   repeated words; B3 w8 against the quantized oracle); B3 w8 at K = 7,
+   C_in = 2,720 (sums past 2^24, in int32); B5 at depth 65,536; timed.
 4. serve   — the full-width CIFAR-10 net (paper Table 6) behind the port's
    ModelRegistry + ServeRuntime on ``queue_pallas``, one fp32 handle and
-   one ``weight_bits=8`` handle, loaded as the reference's
-   ``serve/bench.py`` ``closed_loop`` loads it: all 256 requests (its
-   default) submitted, then the queue drained; repeated ``SERVE_RUNS``
-   times per handle. Launch counters are zeroed just before and read just
-   after; B1 must launch 6 times per executed bucket and B2 once per bucket
-   of the w8 handle. Per-request energies must sum to a one-shot
-   ``price_record``; padded == unpadded is checked per bucket with a
-   partly filled bucket (bit-exact required on every handle, the Gaussian
-   fp32 one included: the fp32 head multiplies fixed-shape tiles); kernel
-   results must equal the port's CPU run (plain versions) on a small dyadic
-   input.
+   one ``weight_bits=8`` handle, each bucket one CUDA graph captured at
+   warmup (the memory the graphs reserve is printed), loaded by the port's
+   ``serve/bench.py`` ``closed_loop`` as the reference's bench loads it:
+   all 256 requests (its default) submitted, then the queue drained;
+   repeated ``SERVE_RUNS`` times per handle. Launch counters are zeroed
+   just before registration and read just after the runs; a replay runs no
+   wrapper, so the gates read the handles' captured launches times their
+   replays: B1 6 per executed bucket, B2 1 per bucket of the w8 handle.
+   Per-request energies must equal a one-shot ``price_record`` and a
+   one-shot ``infer_batch`` + ``price_record``. Then the open loop
+   (Poisson arrivals on a virtual clock) at 1/4 and 1/2 of each handle's
+   closed-loop rate: latency p50/p99 and the bucket histogram. Graph
+   replay must equal the eager ``infer_batch`` of the same rows bit for bit
+   (logits and all five stats) at every bucket, full and partly filled (n
+   = b//2 + 1 valid rows, other images in the rest), on the Gaussian and
+   the dyadic fp32 and w8 handles; kernel results must equal the port's
+   CPU run (plain versions) on a small dyadic input.
 5. sparse  — ``engine.infer_batch(..., backend="queue_sparse")`` on the
    full-width net at bucket 64: Gaussian and dyadic nets, fp32 and
    ``weight_bits=8``, analog input, and binary (TTFS) input once. Counters
@@ -84,9 +95,12 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    ``PROFILE_WINDOWS`` windows of 5 bucket-64 calls each of ``queue`` and
    ``dense`` in turns.
 7. profile — bucket-64 executions per serving handle, in
-   ``PROFILE_WINDOWS`` windows: each window's wall time and device time by
-   kernel (torch.profiler) come from the same calls, so the device's idle
-   share is read within one window; the spread across windows is printed.
+   ``PROFILE_WINDOWS`` windows of graph replays and, in turns, of the eager
+   ``infer_batch`` call: each window's wall time and device time by kernel
+   (torch.profiler) come from the same calls, so the device's idle share
+   is read within one window; the spread across windows is printed, and
+   the port's kernels are counted by name per replay (B1's gather 6, B2 1
+   on the w8 handle).
 
 Output: human-readable lines, then a JSON ``{"kernels": [...]}`` line, then
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
@@ -96,6 +110,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -175,24 +190,35 @@ def device_ms(fn, names, reps=20):
     """Mean device time per call of the kernels whose names contain one of
     ``names``, over ``reps`` calls of ``fn`` (torch.profiler): the kernel
     alone, without the host's launch cost, which the CUDA-event time of a
-    short kernel includes."""
+    short kernel includes. A window now and then comes back without some
+    records: the first window in which every kernel it saw ran at least
+    once a call counts; failing that in 5 windows, the fullest one does,
+    and a line says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a window now and then comes back without records
+    best, best_n = [], -1
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and any(n in e.key for n in names))
-        if total > 0:
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(n in e.key for n in names)]
+        if hits and all(e.count >= reps for e in hits):
+            best = hits
             break
+        if sum(e.count for e in hits) > best_n:
+            best, best_n = hits, sum(e.count for e in hits)
+    else:
+        log(f"[profiler] no window of the kernels named {names} held every "
+            "call's records in 5 windows; the fullest one counts")
+    total = sum(e.device_time_total for e in best)
     check(total > 0, f"the profiler saw no kernel named {names}")
     return total / 1e3 / reps
 
@@ -290,14 +316,23 @@ def phase_build():
 
     t0 = time.perf_counter()
     paths = _cuda.build_all()
-    log(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(paths)} sources in {time.perf_counter() - t0:.1f} s "
+        "(one nvcc each, in parallel)")
+    out = {}
     for name in paths:
         build_log = _cuda.BUILD / f"{name}.log"
-        lines = build_log.read_text().splitlines() if build_log.exists() else []
-        for line in lines:
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {name}: {line.strip()}")
-    return {n: str(p) for n, p in paths.items()}
+        text = build_log.read_text() if build_log.exists() else ""
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+        stack = [int(m) for m in re.findall(r"(\d+) bytes stack frame", text)]
+        out[name] = dict(library=str(paths[name]), kernels=len(regs),
+                         registers=regs, spill_bytes=sum(spills),
+                         stack_bytes=max(stack, default=0))
+        log(f"[build]   {name}: {len(regs)} kernels, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
+            f"{sum(spills)}, largest stack frame {max(stack, default=0)} B")
+    return out
 
 
 def dropped_conv(occ, cp, w, depth):
@@ -610,6 +645,167 @@ def phase_b3(stages, device):
     return rows, err_max
 
 
+# C3: shapes past the old limits of B1, B3, B4 (the staged kept bits of a
+# whole map row, K in {1, 3, 5, 7} only) and B5 (depth <= 58,103)
+C3_GATHER = (  # (hw, C_in, C_out, K, rows, depth)
+    (128, 4, 40, 3, 2, 16), (512, 3, 32, 3, 2, 64),
+    (32, 3, 40, 9, 3, 16), (32, 3, 40, 11, 3, 16))
+C3_W8 = (14, 2720, 32, 7, 2, 4)   # K*K*C_in*127 = 16,925,360 > 2^24
+C3_B5 = ((6, 11, 65536), (5, 1, 65536))   # (rows, n_win, depth)
+
+
+def phase_c3(device):
+    """C3 on the card: B1, B3 and B4 at maps past the old staged-bits limit
+    (K = 3, W = 128 and 512) and at K = 9 and 11 (the rolled gather), B3 w8
+    past 2^24 (int32 sums), B5 at depth 65,536: every result bit-exact
+    against its oracle (the (c, phase)-ordered one for B1, B3 and B4 in fp32
+    and B4 in bf16 and on repeated words; the quantized one for B3 w8; the
+    plain version for B5), B1 also within 1e-4 of its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.aeq import aeq_from_raster_batch, phase_occupancy
+    from repro_torch.core.encoding import make_format
+    from repro_torch.kernels import event_accum as ea
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spike_compact as sc
+    from repro_torch.kernels import spike_pipeline as sp
+    from repro_torch.kernels import spike_sparse as ss
+
+    rng = np.random.default_rng(SEED + 17)
+
+    def gauss(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(device)
+
+    def spikes(*shape, p=0.25):
+        return torch.from_numpy((rng.random(shape) < p).astype(np.float32)) \
+            .to(device)
+
+    rows_out = []
+    for hw, c_in, c_out, K, n, depth in C3_GATHER:
+        fmt = make_format(hw, K)
+        kw = dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+        occ = phase_occupancy(fmt, spikes(n, hw, hw, c_in)).contiguous()
+        w = gauss(K, K, c_in, c_out)
+        want = ref.fused_spike_accum_ordered_ref(occ, w, **kw)
+        b1 = sp.fused_spike_accum_cuda(occ, w, **kw)
+        b3 = ss.fused_spike_accum_sparse_cuda(occ, w, **kw)
+        b3q = ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=8, **kw)
+        torch.cuda.synchronize()
+        tag = f"K={K} W={hw} C_in={c_in} C_out={c_out} rows={n}"
+        check(torch.equal(b1, want), f"C3 B1 {tag}: differs from the ordered "
+              f"oracle (max |err| {float((b1 - want).abs().max())})")
+        check(torch.equal(b3, want), f"C3 B3 {tag}: differs from the ordered "
+              "oracle")
+        check(torch.equal(b3q, ref.fused_spike_accum_quant_ref(
+            occ, w, weight_bits=8, **kw)),
+            f"C3 B3 w8 {tag}: differs from the quantized oracle")
+        plain = sp.fused_spike_accum_plain(occ, w, **kw)
+        err = float((b1 - plain).abs().max())
+        check(torch.allclose(b1, plain, atol=1e-4, rtol=1e-4),
+              f"C3 B1 {tag}: max |err| {err} vs the plain version")
+
+        # B4 on a step's slice of real queues (B5 wrote them), fp32 and
+        # bf16, then on queues that repeat positions
+        raster = spikes(n, 2, c_in, hw, hw, p=0.2)
+        q = aeq_from_raster_batch(fmt, raster, depth)
+        words, counts = q.words[:, 1], q.counts[:, 1]
+        occ_t = phase_occupancy(fmt, raster[:, 1].permute(0, 2, 3, 1))
+        vm = gauss(n, hw, hw, c_out)
+        kw4 = dict(K=K, n_win=fmt.n_win, bits=fmt.bits_coord)
+        b4 = ea.event_accum_cuda(words, counts, w, vm, **kw4)
+        torch.cuda.synchronize()
+        check(torch.equal(b4, ref.fused_spike_accum_ordered_ref(
+            occ_t, w, init=vm, **kw)),
+            f"C3 B4 {tag}: differs from the ordered oracle from the membrane")
+        w16, vm16 = w.bfloat16(), vm.bfloat16()
+        check(torch.equal(
+            ea.event_accum_cuda(words, counts, w16, vm16, **kw4),
+            ref.fused_spike_accum_ordered_ref(occ_t, w16, init=vm16, **kw)),
+            f"C3 B4 bf16 {tag}: differs from the ordered oracle")
+        D = words.shape[-1]
+        wr = words[..., torch.arange(D, device=device) // 2].contiguous()
+        cr = torch.clamp(counts * 2, max=D).contiguous()
+        mult = ea.event_mult_plain(wr, cr, n_win=fmt.n_win,
+                                   bits=fmt.bits_coord)
+        check(torch.equal(
+            ea.event_accum_cuda(wr, cr, w, vm, **kw4),
+            ref.fused_spike_accum_ordered_ref(
+                mult, w, init=vm, multiplicity=True,
+                **{**kw, "depth": fmt.n_win ** 2})),
+            f"C3 B4 repeats {tag}: differs from the ordered oracle on the "
+            "multiplicities")
+
+        def k1(occ=occ, w=w, kw=kw):
+            return sp.fused_spike_accum_cuda(occ, w, **kw)
+
+        def k4(words=words, counts=counts, w=w, vm=vm, kw4=kw4):
+            return ea.event_accum_cuda(words, counts, w, vm, **kw4)
+
+        row = dict(hw=hw, C_in=c_in, C_out=c_out, K=K, rows=n, depth=depth,
+                   b1_ms=time_ms(k1),
+                   b1_device_ms=device_ms(k1,
+                                          KERNEL_NAMES["fused_spike_accum"]),
+                   b4_ms=time_ms(k4),
+                   b4_device_ms=device_ms(k4, KERNEL_NAMES["event_accum"]),
+                   b1_plain_max_abs_err=err,
+                   route="unrolled" if K in sp.UNROLLED_K else "rolled",
+                   smem_bytes=(sp.gather_smem(K, fmt.n_win, hw, hw)
+                               if K in sp.UNROLLED_K else 0))
+        rows_out.append(row)
+        log(f"[c3] {tag} depth={depth} ({row['route']} gather, "
+            f"{row['smem_bytes']} B shared a block): B1, B3 == ordered "
+            f"oracle, B3 w8 == quantized oracle, B4 fp32/bf16/repeats == "
+            f"ordered oracle | B1 ms {row['b1_ms']:.4f} (device "
+            f"{row['b1_device_ms']:.4f}), B4 ms {row['b4_ms']:.4f} (device "
+            f"{row['b4_device_ms']:.4f}) | B1 max|err| {err:.3g} vs plain")
+
+    # B3's int path past 2^24: int32 sums
+    hw, c_in, c_out, K, n, depth = C3_W8
+    fmt = make_format(hw, K)
+    check(not ss.int_sums_fit_fp32(K, c_in), "C3 w8 shape fits fp32 sums")
+    kw = dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+    occ = phase_occupancy(fmt, spikes(n, hw, hw, c_in)).contiguous()
+    w = gauss(K, K, c_in, c_out)
+
+    def kq(occ=occ, w=w, kw=kw):
+        return ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=8, **kw)
+
+    got = kq()
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref.fused_spike_accum_quant_ref(
+        occ, w, weight_bits=8, **kw)),
+        f"C3 B3 w8 K={K} C_in={c_in}: differs from the quantized oracle")
+    w8 = dict(hw=hw, C_in=c_in, C_out=c_out, K=K, rows=n, depth=depth,
+              ms=time_ms(kq),
+              device_ms=device_ms(kq,
+                                  KERNEL_NAMES["fused_spike_accum_sparse"]))
+    log(f"[c3] B3 w8 K={K} W={hw} C_in={c_in} (K*K*C_in*127 = "
+        f"{K * K * c_in * 127} >= 2^24: int32 sums) == quantized oracle | ms "
+        f"{w8['ms']:.4f} (device {w8['device_ms']:.4f})")
+
+    # B5 past depth 58,103: rows written in place
+    b5 = []
+    for R, n_win, depth in C3_B5:
+        fmt = make_format(n_win, 1)
+        occ = (spikes(R, n_win * n_win, p=0.5) > 0).to(torch.int32)
+        kw5 = dict(n_win=n_win, bits=fmt.bits_coord, depth=depth,
+                   invalid=fmt.invalid_word)
+        got = sc.spike_compact_cuda(occ, **kw5)
+        want = sc.spike_compact_plain(occ, **kw5)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"C3 B5 rows={R} P={n_win * n_win} depth={depth}: differs from "
+              "the plain version")
+        b5.append(dict(rows=R, P=n_win * n_win, depth=depth,
+                       ms=time_ms(lambda occ=occ, kw5=kw5:
+                                  sc.spike_compact_cuda(occ, **kw5))))
+        log(f"[c3] B5 rows={R} P={n_win * n_win} depth={depth} == plain "
+            f"version | ms {b5[-1]['ms']:.4f}")
+    return dict(gather=rows_out, b3_w8=w8, b5=b5)
+
+
 def spread(values):
     """min / median / max of a list of numbers."""
     import numpy as np
@@ -630,9 +826,27 @@ def _stats_equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _graph_launches(handles, before):
+    """Kernel launches that graph replays made since ``before`` (bucket ->
+    replays per handle): each bucket's captured launches times its
+    replays."""
+    out = {}
+    for name, h in handles.items():
+        for b, n in h.replay_count.items():
+            n -= before[name].get(b, 0)
+            for k, v in h.plan_launches[b].items():
+                out[k] = out.get(k, 0) + v * n
+    return out
+
+
 def phase_serve(params, device, kind):
-    """Serve the full-width net through the port; check counters, energy
-    metering and the mask contract."""
+    """Serve the full-width net through the port, one captured CUDA graph
+    per bucket: launch gates (captured launches x replays), replay == eager,
+    energy metering, the mask contract, the closed and the open loop."""
     import numpy as np
     import torch
 
@@ -640,12 +854,26 @@ def phase_serve(params, device, kind):
     from repro_torch.data.synthetic import make_cifar_like
     from repro_torch.kernels import ops
     from repro_torch.serve import BucketPolicy, ModelRegistry, ServeRuntime
+    from repro_torch.serve import bench
     from repro_torch.study import StatsRecord, price_record
 
-    registry = ModelRegistry(capacity=4, device=device)
     th = [1.0] * len(params)
     cfg = engine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C_IN, T=T,
                            mode=MODE, depth=DEPTH)
+    images, _ = make_cifar_like(N_REQUESTS, seed=SEED + 7)
+
+    def reserved_now():
+        """Device memory the caching allocator holds once its free blocks
+        are returned: a captured graph's private pool stays reserved."""
+        gc.collect()  # also the earlier phases' profiler records
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    reserved0 = reserved_now()
+
+    ops.reset_launch_counts()                      # the main-path window:
+    registry = ModelRegistry(capacity=4, device=device)   # capture, serve
     handles = {
         "cifar10-fp32": registry.register("cifar10-fp32", params, th, cfg),
         "cifar10-w8": registry.register("cifar10-w8", params, th,
@@ -653,52 +881,65 @@ def phase_serve(params, device, kind):
     }
     t0 = time.perf_counter()
     for h in handles.values():
-        h.warmup(BUCKETS)
+        h.warmup(BUCKETS)                          # captures, 2nd pass flat
+        check(h.compile_count == len(BUCKETS),
+              f"{h.name}: {h.compile_count} captures for buckets {BUCKETS}")
     torch.cuda.synchronize()
-    log(f"[serve] warmup of {len(handles)} handles x buckets {BUCKETS}: "
-        f"{time.perf_counter() - t0:.2f} s")
+    warmup_s = time.perf_counter() - t0
+    reserved = reserved_now() - reserved0
+    captured = {n: {b: dict(h.plan_launches[b]) for b in BUCKETS}
+                for n, h in handles.items()}
+    for name, per_bucket in captured.items():
+        for b, got in per_bucket.items():
+            want = {"fused_spike_accum": 6,
+                    "quant_matmul": int(name.endswith("w8"))}
+            check(all(got[k] == v for k, v in want.items())
+                  and sum(got.values()) == sum(want.values()),
+                  f"{name} bucket {b}: the graph captured {got}, expected "
+                  f"{want}")
+    log(f"[serve] warmup of {len(handles)} handles x buckets {BUCKETS} "
+        f"(eager run, capture, two passes): {warmup_s:.2f} s; the graphs, "
+        f"their static buffers and the params reserve "
+        f"{reserved / 2 ** 20:.1f} MiB of device memory "
+        f"(torch.cuda.memory_reserved after warmup, free cache emptied, "
+        f"less the same before registration); each "
+        f"bucket's graph holds {_nonzero(captured['cifar10-w8'][64])} "
+        "launches (w8)")
 
-    images, _ = make_cifar_like(N_REQUESTS, seed=SEED + 7)
     runtime = ServeRuntime(registry, BucketPolicy(BUCKETS))
+    replays0 = {n: dict(h.replay_count) for n, h in handles.items()}
     results = {}
-    gc.collect()  # the earlier phases' profiler records, not the serve loop's
-
-    ops.reset_launch_counts()                      # the main-path window
     for name in handles:
         for run in range(SERVE_RUNS):              # closed loop, as the
             batches0 = runtime.n_batches           # reference bench runs it
-            step_s, responses = [], []
-            t_start = time.perf_counter()
-            for im in images:
-                runtime.submit(im, name)
-            while runtime.pending():
-                t = time.perf_counter()
-                responses.extend(runtime.step())
-                step_s.append(time.perf_counter() - t)
-            wall = time.perf_counter() - t_start
+            res = bench.closed_loop(runtime, name, images)
             results[(name, run)] = dict(
-                responses=responses, steps=step_s, wall=wall,
-                batches=runtime.n_batches - batches0)
-    launches = dict(ops.launch_counts)             # read right after
-    log(f"[serve] launches in the serve window: {launches}")
-
+                result=res, batches=runtime.n_batches - batches0)
+    counted = dict(ops.launch_counts)              # read right after
+    replayed = _graph_launches(handles, replays0)
+    log(f"[serve] launch counters in the serve window (eager warmups and "
+        f"captures; replays run no wrapper): {_nonzero(counted)}; replayed "
+        f"launches (captured x replays, closed loop): {_nonzero(replayed)}")
     n_batches = sum(r["batches"] for r in results.values())
     w8_batches = sum(r["batches"] for (name, _), r in results.items()
                      if name == "cifar10-w8")
-    check(launches["fused_spike_accum"] == 6 * n_batches,
-          f"B1 launched {launches['fused_spike_accum']} times for "
+    check(counted["fused_spike_accum"] > 0 and counted["quant_matmul"] > 0,
+          f"a serve kernel never launched in the serve window: {counted}")
+    check(replayed.get("fused_spike_accum", 0) == 6 * n_batches,
+          f"B1 replayed {replayed.get('fused_spike_accum', 0)} launches for "
           f"{n_batches} buckets (expected 6 per bucket)")
-    check(launches["quant_matmul"] == w8_batches,
-          f"B2 launched {launches['quant_matmul']} times for "
+    check(replayed.get("quant_matmul", 0) == w8_batches,
+          f"B2 replayed {replayed.get('quant_matmul', 0)} launches for "
           f"{w8_batches} w8 buckets (expected 1 each)")
 
     summary = {}
-    for name in handles:
+    for name, h in handles.items():
         runs = []
         for run in range(SERVE_RUNS):
-            r = results[(name, run)]
-            resp = sorted(r["responses"], key=lambda x: x.rid)
-            check(len(resp) == N_REQUESTS, f"{name}: {len(resp)} responses")
+            res = results[(name, run)]["result"]
+            resp = res.responses
+            check(res.n_requests == N_REQUESTS,
+                  f"{name}: {res.n_requests} responses")
             logits = np.stack([x.logits for x in resp])
             check(logits.shape == (N_REQUESTS, 10)
                   and np.isfinite(logits).all(),
@@ -707,21 +948,27 @@ def phase_serve(params, device, kind):
                                                    for x in resp])
                                    for f in StatsRecord._fields))
             one_shot = price_record(record, input_hw=HW).total_j.numpy()
-            served = np.array([x.energy_j for x in resp], np.float32)
+            served = bench.energy_array(resp)
             check(np.array_equal(served, one_shot)
                   and served.sum() == one_shot.sum(),
                   f"{name}: per-request energies differ from one-shot "
                   "pricing")
-            latency = np.array([x.latency_s for x in resp]) * 1e3
             hist = {}
             for x in resp:
                 hist[x.bucket] = hist.get(x.bucket, 0) + 1
             runs.append(dict(
-                batches=r["batches"], requests_per_s=N_REQUESTS / r["wall"],
-                latency_ms_p50=float(np.percentile(latency, 50)),
-                latency_ms_p99=float(np.percentile(latency, 99)),
-                step_ms=[v * 1e3 for v in r["steps"]],
+                batches=results[(name, run)]["batches"],
+                requests_per_s=res.throughput_rps,
+                latency_ms_p50=res.latency_p50_s * 1e3,
+                latency_ms_p99=res.latency_p99_s * 1e3,
+                step_ms=[x.step_total_s * 1e3 for x in resp],
                 requests_by_bucket=hist))
+        parity = bench.verify_energy_parity(runtime, name, images,
+                                            results[(name, 0)]["result"]
+                                            .responses)
+        check(parity["elementwise_bitexact"] and parity["sum_bitexact"],
+              f"{name}: served energies differ from one-shot infer_batch + "
+              f"price_record: {parity}")
         s = dict(requests=N_REQUESTS, runs=runs,
                  requests_per_s=spread([x["requests_per_s"] for x in runs]),
                  latency_ms_p50=spread([x["latency_ms_p50"] for x in runs]),
@@ -731,25 +978,53 @@ def phase_serve(params, device, kind):
                  spikes_per_layer=record.spikes_out.mean(0).tolist(),
                  adds_per_layer=record.add_ops.mean(0).tolist(),
                  overflow_per_request=float(record.overflow.mean()),
-                 energy_j_sum=float(served.sum()),
+                 energy_j_sum=float(served.sum()), energy_parity=parity,
                  preds=np.bincount([x.pred for x in resp],
                                    minlength=10).tolist())
         summary[name] = s
-        log(f"[serve] {name} on {kind}, closed loop ({N_REQUESTS} requests "
-            f"submitted, then drained; {SERVE_RUNS} runs; buckets "
-            f"{runs[-1]['requests_by_bucket']}): req/s "
+        log(f"[serve] {name} on {kind}, closed loop through graph replays "
+            f"({N_REQUESTS} requests submitted, then drained; {SERVE_RUNS} "
+            f"runs; buckets {runs[-1]['requests_by_bucket']}): req/s "
             f"{fmt_spread(s['requests_per_s'], '{:.1f}')} | request latency "
             f"p50 {fmt_spread(s['latency_ms_p50'])} ms, p99 "
             f"{fmt_spread(s['latency_ms_p99'])} ms | step "
             f"{fmt_spread(s['step_ms'])} ms | energy sum "
             f"{s['energy_j_sum']:.6g} J (pricing model) == one-shot "
-            "price_record")
+            "price_record and infer_batch + price_record")
         log(f"[serve]   mean per request: events_in "
             f"{[round(v, 1) for v in s['events_per_layer']]} spikes_out "
             f"{[round(v, 1) for v in s['spikes_per_layer']]} overflow "
             f"{s['overflow_per_request']:.1f}")
 
-    # mask contract, per bucket: every handle held bit-exact
+    # partial load: the reference bench's open loop (Poisson arrivals on a
+    # virtual clock, measured service times) at 1/4 and 1/2 of this handle's
+    # median closed-loop rate
+    open_runs = {}
+    for name in handles:
+        rate = summary[name]["requests_per_s"]["median"]
+        for frac in (0.25, 0.5):
+            res = bench.open_loop(ServeRuntime(registry, BucketPolicy(BUCKETS)),
+                                  name, images, rate_rps=rate * frac,
+                                  seed=SEED)
+            check(res.n_requests == N_REQUESTS,
+                  f"{name} open loop: {res.n_requests} responses")
+            open_runs[f"{name} @{frac}"] = o = dict(
+                rate_rps=rate * frac, requests_per_s=res.throughput_rps,
+                latency_ms_p50=res.latency_p50_s * 1e3,
+                latency_ms_p95=res.latency_p95_s * 1e3,
+                latency_ms_p99=res.latency_p99_s * 1e3,
+                virtual_s=res.wall_s, bucket_histogram=res.bucket_histogram)
+            log(f"[serve] {name} open loop at {frac} x {rate:.1f} = "
+                f"{rate * frac:.1f} req/s (Poisson, virtual clock): latency "
+                f"p50 {o['latency_ms_p50']:.3f} ms, p99 "
+                f"{o['latency_ms_p99']:.3f} ms | served "
+                f"{o['requests_per_s']:.1f} req/s | batches by bucket "
+                f"{o['bucket_histogram']}")
+
+    # replay == the eager engine call, and the mask contract, per bucket on
+    # every handle (Gaussian and dyadic): a full bucket, and a partly
+    # filled one (n = b//2 + 1 rows, the rest other images) against the
+    # eager call on its n rows
     dy = dyadic_params(params, device)
     dyh = {
         "dyadic-fp32": registry.register("dyadic-fp32", dy, th, cfg),
@@ -757,30 +1032,31 @@ def phase_serve(params, device, kind):
                                        cfg._replace(weight_bits=8)),
     }
     mask_imgs, _ = make_cifar_like(max(BUCKETS), seed=SEED + 11)
-    imgs_dy = np.round(mask_imgs * 256) / 256
+    imgs_dy = (np.round(mask_imgs * 256) / 256).astype(np.float32)
     mask = {}
     for name, h in {**handles, **dyh}.items():
         src = imgs_dy if name.startswith("dyadic") else mask_imgs
         for b in BUCKETS:
-            if b == 1:                 # a full bucket of one: nothing to mask
-                continue
-            n = b // 2 + 1             # rows n..b-1 are other images
-            lp, sp_ = h.run_bucket(src[:b].astype(np.float32), n)
-            lu, su = h.run_bucket(src[:n].astype(np.float32), n)
-            same = torch.equal(lp, lu) and _stats_equal(sp_, su)
-            diff = float((lp - lu).abs().max())
-            mask[f"{name} B={b} n={n}"] = dict(
-                bit_exact=same, max_abs_logit_diff=diff,
-                stats_equal=_stats_equal(sp_, su))
-            check(same, f"mask contract broken on {name} bucket {b}: "
-                  f"max |logit diff| {diff}")
-    log(f"[serve] padded == unpadded: {len(mask)}/{len(mask)} (handle, "
-        "bucket) pairs bit-exact")
+            for n in sorted({b, b // 2 + 1}):
+                lr, sr = h.run_bucket(src[:b], n)  # padded when n < b
+                le, se = engine.infer_batch(h.params, h.thresholds, h.cfg,
+                                            src[:n], backend=h.backend,
+                                            device=device)
+                same = torch.equal(lr, le) and _stats_equal(sr, se)
+                mask[f"{name} B={b} n={n}"] = dict(
+                    bit_exact=same,
+                    max_abs_logit_diff=float((lr - le).abs().max()))
+                check(same, f"{name} bucket {b}, {n} valid: the replay "
+                      f"differs from the eager call on {n} rows (max |logit "
+                      f"diff| {float((lr - le).abs().max())})")
+    log(f"[serve] graph replay == eager infer_batch: {len(mask)}/{len(mask)}"
+        " (handle, bucket, valid rows) cases bit-exact in logits and all "
+        "five stats (4 handles x buckets x full and partly filled)")
 
     # the kernels against the port's CPU run (plain versions), small input
     agree = {}
     for name, h in dyh.items():
-        small = imgs_dy[:3].astype(np.float32)
+        small = imgs_dy[:3]
         lg, sg = engine.infer_batch(h.params, h.thresholds, h.cfg, small,
                                     backend="queue_pallas", device=device)
         lc, sc = engine.infer_batch([{k: v.cpu() for k, v in p.items()}
@@ -794,7 +1070,9 @@ def phase_serve(params, device, kind):
               f"(max |logit diff| {float((lg.cpu() - lc).abs().max())})")
         agree[name] = same
     log(f"[serve] GPU == CPU plain run on 3 dyadic images: {agree}")
-    return summary, launches, mask
+    return dict(closed=summary, open=open_runs, warmup_s=warmup_s,
+                graphs_reserved_bytes=reserved, captured=captured,
+                launch_counters=counted), replayed, mask
 
 
 def profile_window(run, reps=5):
@@ -823,9 +1101,17 @@ def profile_window(run, reps=5):
     rows.sort(reverse=True)
     check(rows, "the profiler saw no device time")
     busy_ms = sum(r[0] for r in rows)
+    calls = {}  # launches per call of the port's kernels, by name
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for n in ("fused_spike_accum_gather", "quant_matmul",
+                      "sparse_gather_kernel", "event_accum_gather_kernel",
+                      "spike_compact_kernel"):
+                if n in e.key:
+                    calls[n] = calls.get(n, 0) + e.count / reps
     return dict(
         unprofiled_wall_ms=bare_ms, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        idle_share=1 - busy_ms / wall_ms,
+        idle_share=1 - busy_ms / wall_ms, port_kernel_calls=calls,
         device_ops=sum(r[1] for r in rows),
         port_kernels_device_ms={
             k: sum(r[0] for r in rows if any(n in r[2] for n in names))
@@ -1413,21 +1699,53 @@ def phase_word(params, ths, cfg, images, device, kind):
 
 def phase_profile(params, ths, cfg, images, kind):
     """Where a bucket-64 execution's time goes, for an fp32 and a
-    ``weight_bits=8`` serving handle, in ``PROFILE_WINDOWS`` windows of 5
-    synchronized ``run_bucket`` calls each (:func:`profile_window`)."""
+    ``weight_bits=8`` serving handle: ``PROFILE_WINDOWS`` windows of 5
+    synchronized graph replays (``run_bucket``) and, in turns, of 5 eager
+    ``engine.infer_batch`` calls of the same bucket (:func:`profile_window`).
+    The replay windows also count the port's kernels by name, where the
+    profiler reports the kernels a graph runs: B1's gather 6 times and
+    B2's once (w8) per replay."""
+    import torch
+
+    from repro_torch.core import engine
     from repro_torch.serve import ModelRegistry
 
     registry = ModelRegistry(device=images.device)
     handles = {n: registry.register(n, params, ths, c) for n, c in (
         ("cifar10-fp32", cfg), ("cifar10-w8", cfg._replace(weight_bits=8)))}
-    images = images.cpu().numpy()
+    host = images.cpu().numpy()
     B, out = images.shape[0], {}
     for name, h in handles.items():
-        h.run_bucket(images, B)                            # warm
-        windows = [profile_window(lambda: h.run_bucket(images, B))
-                   for _ in range(PROFILE_WINDOWS)]
-        out[name] = dict(bucket=B, windows=windows,
-                         **log_windows("profile", name, windows, kind))
+        def replay(h=h):
+            h.run_bucket(host, B)
+
+        def eager(h=h):
+            engine.infer_batch(h.params, h.thresholds, h.cfg, host,
+                               backend=h.backend, device=images.device)
+            torch.cuda.synchronize()
+
+        replay()                                   # capture
+        eager()                                    # warm
+        windows = {"replay": [], "eager": []}
+        for i in range(PROFILE_WINDOWS):           # in turns
+            order = ("replay", "eager") if i % 2 == 0 else ("eager", "replay")
+            for k in order:
+                windows[k].append(profile_window(replay if k == "replay"
+                                                 else eager))
+        calls = windows["replay"][-1]["port_kernel_calls"]
+        want = {"fused_spike_accum_gather": 6,
+                "quant_matmul": int(name.endswith("w8"))}
+        seen = all(calls.get(k, 0) == v for k, v in want.items())
+        log(f"[profile] {name}: kernels per replay by name in the profiled "
+            f"window: {calls} ("
+            + ("== B1's 6 gathers and B2's launches per bucket" if seen else
+               "the profiler did not report each graph kernel as expected")
+            + ")")
+        out[name] = dict(bucket=B, kernels_per_replay=calls,
+                         graph_kernels_reported=seen)
+        for k, w in windows.items():
+            out[name][k] = dict(windows=w, **log_windows(
+                "profile", f"{name} {k}", w, kind))
     return out
 
 
@@ -1458,6 +1776,7 @@ def main() -> int:
     b1, b1_err, b2, b2_err = phase_kernels(stages, last_raster, params,
                                            device)
     b3, b3_err = phase_b3(stages, device)
+    c3 = phase_c3(device)
     serve, launches, mask = phase_serve(params, device, kind)
     sparse = phase_sparse(params, th, cfg, imgs, device, kind)
     b5, b4, b4_err = phase_word_kernels(stages, device)
@@ -1534,8 +1853,8 @@ def main() -> int:
              plain_ms=b6_main["plain_ms"], bound_ms=b6_main["bound_ms"],
              bound_by=b6_main["bound_by"], library_ms=b6_main["library_ms"]),
     ]
-    windows = ("serve", "serve", "queue_sparse", "queue", "queue",
-               "kernel_bench call")
+    windows = ("serve (graph replays)", "serve (graph replays)",
+               "queue_sparse", "queue", "queue", "kernel_bench call")
     for k, window in zip(kernels, windows):
         lib = ("none" if k["library_ms"] is None
                else f"{k['library_ms']:.4f}")
@@ -1546,7 +1865,8 @@ def main() -> int:
             f"{k['bound_ms']:.6f} {k['bound_by']}), {k['launches']} launches "
             f"in the {window} window")
     details = dict(device=kind, nvidia_smi=smi_line, build=build,
-                   b1=b1, b2=b2, b3=b3, b4=b4, b5=b5, b6=b6, serve=serve,
+                   b1=b1, b2=b2, b3=b3, c3=c3, b4=b4, b5=b5, b6=b6,
+                   serve=serve,
                    mask_contract=mask, sparse=sparse, word=word,
                    kernels=kernels, profile=profile,
                    seconds=time.perf_counter() - t_all)

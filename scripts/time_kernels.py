@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of the port's B2, B4 and B6 kernels from one tree, on one card.
+"""Device times of the port's B1-B4 and B6 kernels from one tree, on one card.
 
     python3 scripts/time_kernels.py [--src PATH/src] [--tag NAME] [--out FILE]
+                                    [--kernels b1,b2,b3,b4,b6]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 builds that tree's kernels and times them on the same inputs, so that one
@@ -10,6 +11,10 @@ call on the card can time two trees in turns (an earlier one unpacked with
 earlier. The inputs come from ``chip_smoke.py``'s helpers in this checkout,
 at its seed: the full-width CIFAR-10 net at bucket 64, T=4, depth 64.
 
+- B1 (``fused_spike_accum_cuda``) and B3 (``fused_spike_accum_sparse_cuda``,
+  fp32 and ``weight_bits=8``): every analog stage's real occupancy at depth
+  64 (64 * 4 rows); summed, one bucket-64 ``queue_pallas`` (B1) or
+  ``queue_sparse`` (B3) execution's work;
 - B2 (``quant_matmul_cuda``): the output head, M in {1, 4, 16, 64}, K=1152,
   N=10, and (256, 256, 256), beside ``torch._int_mm`` (A and B zero-padded
   to its smallest shape, then the same dequant);
@@ -72,14 +77,14 @@ def b2_times(device, gen):
     return rows
 
 
-def b4_times(device):
+def serve_stages(device):
+    """chip_smoke.py's stage inputs: (name, ConvPlan, occupancy, weights) of
+    every event-driven stage of the full-width net on 64 images."""
     import torch
 
     from repro_torch.core import engine
     from repro_torch.core.snn_model import init_params
     from repro_torch.data.synthetic import make_cifar_like
-    from repro_torch.kernels import event_accum as ea
-    from repro_torch.kernels import spike_compact as sc
 
     params = init_params(torch.Generator().manual_seed(cs.SEED), cs.SPEC,
                          cs.HW, cs.C_IN, device=device)
@@ -88,7 +93,42 @@ def b4_times(device):
                            T=cs.T, mode=cs.MODE, depth=cs.DEPTH)
     imgs = torch.as_tensor(make_cifar_like(64, seed=cs.SEED + 3)[0],
                            device=device)
-    stages, _ = cs.stage_inputs(params, th, cfg, imgs)
+    return cs.stage_inputs(params, th, cfg, imgs)[0]
+
+
+def b1_b3_times(device):
+    from repro_torch.kernels import spike_pipeline as sp
+    from repro_torch.kernels import spike_sparse as ss
+
+    rows = []
+    for name, cp, occ, w in serve_stages(device):
+        if name.startswith("conv0"):
+            continue                   # the binary-input stage: not analog
+        kw = dict(K=cp.kernel, n_win=cp.fmt.n_win, depth=cs.DEPTH,
+                  H=cp.in_hw, W=cp.in_hw)
+
+        def b1(occ=occ, w=w, kw=kw):
+            return sp.fused_spike_accum_cuda(occ, w, **kw)
+
+        def b3(occ=occ, w=w, kw=kw, wb=None):
+            return ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=wb,
+                                                    **kw)
+
+        rows.append(dict(
+            stage=name, b1_ms=cs.time_ms(b1),
+            b1_device_ms=cs.device_ms(b1, ("fused_spike_accum",)),
+            b3_device_ms=cs.device_ms(b3, ("sparse_",)),
+            b3_w8_device_ms=cs.device_ms(lambda: b3(wb=8), ("sparse_",))))
+    return rows
+
+
+def b4_times(device):
+    import torch
+
+    from repro_torch.kernels import event_accum as ea
+    from repro_torch.kernels import spike_compact as sc
+
+    stages = serve_stages(device)
     gen = torch.Generator().manual_seed(cs.SEED + 4)
     rows = []
     for name, cp, occ, w in stages:
@@ -158,7 +198,11 @@ def main() -> int:
                     help="the src directory of the tree whose kernels run")
     ap.add_argument("--tag", default="this tree")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--kernels", default="b1,b2,b3,b4,b6",
+                    help="comma-separated subset of b1,b2,b3,b4,b6 (b1 "
+                         "also times b3)")
     args = ap.parse_args()
+    want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.src).resolve()))
 
     import torch
@@ -174,11 +218,19 @@ def main() -> int:
     _cuda.build_all()
     gen = torch.Generator().manual_seed(cs.SEED + 6)
     result = dict(tag=args.tag, src=str(Path(repro_torch.__file__).parent),
-                  device=torch.cuda.get_device_name(0),
-                  b2=b2_times(device, gen), b4=b4_times(device),
-                  b6=b6_times(device, gen))
-    result["b4_device_ms"] = sum(r["device_ms"] for r in result["b4"])
-    result["b4_ms"] = sum(r["ms"] for r in result["b4"])
+                  device=torch.cuda.get_device_name(0))
+    if want & {"b1", "b3"}:
+        result["b1_b3"] = b1_b3_times(device)
+        for k in ("b1_device_ms", "b3_device_ms", "b3_w8_device_ms"):
+            result[k] = sum(r[k] for r in result["b1_b3"])
+    if "b2" in want:
+        result["b2"] = b2_times(device, gen)
+    if "b4" in want:
+        result["b4"] = b4_times(device)
+        result["b4_device_ms"] = sum(r["device_ms"] for r in result["b4"])
+        result["b4_ms"] = sum(r["ms"] for r in result["b4"])
+    if "b6" in want:
+        result["b6"] = b6_times(device, gen)
     line = json.dumps(result)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -36,8 +36,10 @@ layer accumulates over T, through the int8 ``quant_matmul`` kernel when
 ``cfg.weight_bits`` is set.
 
 Where the reference uses ``jax.vmap`` the batch axis is written out; where
-it uses ``lax.scan(unroll=True)`` there is a Python loop over T; ``jit`` and
-the runner cache have no counterpart (PyTorch runs eagerly).
+it uses ``lax.scan(unroll=True)`` there is a Python loop over T; ``jit`` has
+no counterpart (PyTorch runs eagerly), and the serving registry captures
+:func:`batch_runner` in one CUDA graph per bucket where the reference
+AOT-compiles it.
 
 Layouts match the reference at every public function: rasters are
 channels-last (B, T, H, W, C), conv weights HWIO (K, K, C_in, C_out),
@@ -368,6 +370,11 @@ def _segment_occupancy(fmt: AEFormat, raster: torch.Tensor) -> torch.Tensor:
 # Backends
 # ---------------------------------------------------------------------------
 
+# A backend whose plan walk can be captured in a CUDA graph (no host sync,
+# no host-sized tensor) has ``capture_refusal`` None; one that cannot says
+# why, and serving refuses it on the card at registration. (Serving refuses
+# ``host_dispatch`` backends, i.e. queue_sparse, on every device.)
+
 class DenseBackend:
     """Dense-dynamics reference: one SAME conv of a stage's spike raster.
 
@@ -384,6 +391,7 @@ class DenseBackend:
     """
 
     supports_batch = True
+    capture_refusal = None
 
     def __init__(self, unroll: bool = False):
         self.unroll = unroll
@@ -432,6 +440,7 @@ class QueueBackend:
     """
 
     supports_batch = True
+    capture_refusal = None
 
     def __init__(self, accum: str = "kernel"):
         if accum not in ("kernel", "ref", "word"):
@@ -440,6 +449,11 @@ class QueueBackend:
         self.accum = accum
         self.name = {"kernel": "queue_pallas", "ref": "queue_ref",
                      "word": "queue"}[accum]
+        if accum == "ref":
+            self.capture_refusal = (
+                "its scatter oracles find the surviving events with "
+                "torch.nonzero, which waits for the device and sizes a "
+                "tensor on the host (kernels/ref.py)")
 
     def conv_layer_batch(self, cp, w, b, vth, cfg, raster, analog):
         """raster (B, T, H, W, C) 0/1 or analog (B, H, W, C) -> the emitted
@@ -743,7 +757,26 @@ def to_device(params, thresholds, device):
     return params, thresholds
 
 
-@torch.inference_mode()
+def batch_runner(cfg: SNNConfig, backend: str = "dense"):
+    """The batched plan walk behind :func:`infer_batch`, for one (config,
+    backend): ``run(params, thresholds, images) -> (logits, SNNStats)`` over
+    tensors already on one device (see :func:`to_device`), under inference
+    mode, with the plan compiled once here.
+
+    The reference's ``batch_runner`` is the jit executable that its serving
+    registry AOT-compiles per bucket; here the serving registry captures one
+    CUDA graph of this call per bucket (``serve/registry.py``).
+    """
+    be = get_backend(backend)
+    plan = compile_plan(cfg.spec, cfg.input_hw, cfg.input_c, cfg.compressed)
+
+    @torch.inference_mode()
+    def run(params, thresholds, images):
+        return _execute_batch(plan, be, cfg, params, thresholds, images)
+
+    return run
+
+
 def infer_batch(params, thresholds, cfg: SNNConfig, images, *,
                 backend: str = "dense", device=None):
     """Run a (B, H, W, C) batch; returns ``(logits (B, n_out), SNNStats)``.
@@ -759,12 +792,11 @@ def infer_batch(params, thresholds, cfg: SNNConfig, images, *,
     (:func:`infer_batch_masked`) equals the unpadded call.
     """
     device = resolve_device(device)
-    be = get_backend(backend)
-    plan = compile_plan(cfg.spec, cfg.input_hw, cfg.input_c, cfg.compressed)
+    run = batch_runner(cfg, backend)
     params, thresholds = to_device(params, thresholds, device)
     images = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images)
                              else images, dtype=torch.float32, device=device)
-    return _execute_batch(plan, be, cfg, params, thresholds, images)
+    return run(params, thresholds, images)
 
 
 def infer(params, thresholds, cfg: SNNConfig, image, *,

@@ -48,6 +48,8 @@
 //   warps a cell, one pixel row each.
 // - A row's words and counts may sit at any stride from the next row's (a
 //   step's slice of a (B, T, C, K*K, D) queue), so no copy is needed.
+#include <algorithm>
+
 #include "spike_accum.cuh"
 
 namespace {
@@ -56,7 +58,10 @@ using spike_accum::kTile;
 using spike_accum::kWarps;
 constexpr int kFewCells = 2;  // window cells a block for small grids
 
-template <int K>
+// KC = K for the unrolled K in {1, 3, 5, 7}; 0 for any other K, whose K*K
+// comes in K2rt. blockDim.x / 32 warps a block (fewer than kWarps where
+// their scratch would pass 48 KiB), each with K2 * NW words of scratch.
+template <int KC>
 __global__ void __launch_bounds__(kWarps * 32)
 event_accum_decode_kernel(const int32_t* __restrict__ words,
                           const int32_t* __restrict__ counts,
@@ -64,34 +69,38 @@ event_accum_decode_kernel(const int32_t* __restrict__ words,
                           int32_t* __restrict__ mult,
                           int32_t* __restrict__ flags, long long words_stride,
                           long long counts_stride, int n_cells, int C_in,
-                          int D, int n_win, int nbits) {
-  constexpr int K2 = K * K;
-  extern __shared__ uint32_t scratch[];  // [kWarps][K2 * NW]
+                          int D, int n_win, int nbits, int K2rt) {
+  const int K2 = KC > 0 ? KC * KC : K2rt;
+  extern __shared__ uint32_t scratch[];  // [warps][K2 * NW]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int cell = blockIdx.x * kWarps + warp;
+  const int cell = blockIdx.x * (blockDim.x >> 5) + warp;
   if (cell >= n_cells) return;  // warp-uniform
   const int n = cell / C_in, c = cell - n * C_in;
   const int NW = (n_win * n_win + 31) >> 5, QW = K2 * NW;
   const int mask = (1 << nbits) - 1;
   const int32_t* q = words + n * words_stride + (size_t)c * K2 * D;
   const int32_t* cnt = counts + n * counts_stride + (size_t)c * K2;
-  // lane l holds the live slots of queues l and l + 32
-  const int m_lo = lane < K2 ? min(cnt[lane], D) : 0;
-  const int m_hi = lane + 32 < K2 ? min(cnt[lane + 32], D) : 0;
-  uint32_t* s = scratch + warp * QW;
+  uint32_t* s = scratch + (size_t)warp * QW;
   for (int i = lane; i < QW; i += 32) s[i] = 0u;
   __syncwarp();
   int named = 0;  // this lane's live words that name a grid position
+  // 32 queues at a time: lane l holds the live slots of queue q0 + l
 #pragma unroll
-  for (int ph = 0; ph < K2; ++ph) {
-    const int m = __shfl_sync(0xffffffffu, ph < 32 ? m_lo : m_hi, ph & 31);
-    for (int d = lane; d < m; d += 32) {
-      const int word = q[ph * D + d];
-      const int i_c = (word >> nbits) & mask, j_c = word & mask;
-      if (i_c < n_win && j_c < n_win) {
-        const int p = i_c * n_win + j_c;
-        atomicOr(&s[ph * NW + (p >> 5)], 1u << (p & 31));
-        ++named;
+  for (int q0 = 0; q0 < K2; q0 += 32) {
+    const int m_l = q0 + lane < K2 ? min(cnt[q0 + lane], D) : 0;
+    const int qn = min(32, K2 - q0);
+#pragma unroll
+    for (int j = 0; j < qn; ++j) {
+      const int ph = q0 + j;
+      const int m = __shfl_sync(0xffffffffu, m_l, j);
+      for (int d = lane; d < m; d += 32) {
+        const int word = q[ph * D + d];
+        const int i_c = (word >> nbits) & mask, j_c = word & mask;
+        if (i_c < n_win && j_c < n_win) {
+          const int p = i_c * n_win + j_c;
+          atomicOr(&s[ph * NW + (p >> 5)], 1u << (p & 31));
+          ++named;
+        }
       }
     }
   }
@@ -111,13 +120,18 @@ event_accum_decode_kernel(const int32_t* __restrict__ words,
   int32_t* mc = mult + (size_t)cell * K2 * P;
   for (int i = lane; i < K2 * P; i += 32) mc[i] = 0;
   __syncwarp();  // orders the zeros before the warp's atomics
-  for (int ph = 0; ph < K2; ++ph) {
-    const int m = __shfl_sync(0xffffffffu, ph < 32 ? m_lo : m_hi, ph & 31);
-    for (int d = lane; d < m; d += 32) {
-      const int word = q[ph * D + d];
-      const int i_c = (word >> nbits) & mask, j_c = word & mask;
-      if (i_c < n_win && j_c < n_win)
-        atomicAdd(&mc[ph * P + i_c * n_win + j_c], 1);
+  for (int q0 = 0; q0 < K2; q0 += 32) {
+    const int m_l = q0 + lane < K2 ? min(cnt[q0 + lane], D) : 0;
+    const int qn = min(32, K2 - q0);
+    for (int j = 0; j < qn; ++j) {
+      const int ph = q0 + j;
+      const int m = __shfl_sync(0xffffffffu, m_l, j);
+      for (int d = lane; d < m; d += 32) {
+        const int word = q[ph * D + d];
+        const int i_c = (word >> nbits) & mask, j_c = word & mask;
+        if (i_c < n_win && j_c < n_win)
+          atomicAdd(&mc[ph * P + i_c * n_win + j_c], 1);
+      }
     }
   }
 }
@@ -143,6 +157,22 @@ event_accum_gather_kernel(const uint32_t* __restrict__ bits,
                           int C_out) {
   spike_accum::gather<K, false, true, T, Cells, Split, true>(
       bits, w, nullptr, nullptr, nullptr, v_out, n_tasks, C_in, n_win, H, W,
+      C_out, v_in, mult, flags);
+}
+
+// any other odd K: the rolled gather, one warp per output pixel
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+event_accum_gather_kernel_rt(const uint32_t* __restrict__ bits,
+                             const int32_t* __restrict__ mult,
+                             const int32_t* __restrict__ flags,
+                             const float* __restrict__ w,
+                             const T* __restrict__ v_in,
+                             T* __restrict__ v_out, long long n_pix,
+                             int C_in, int K, int n_win, int H, int W,
+                             int C_out) {
+  spike_accum::gather_rt<false, true, T, true>(
+      bits, w, nullptr, nullptr, nullptr, v_out, n_pix, C_in, K, n_win, H, W,
       C_out, v_in, mult, flags);
 }
 
@@ -172,24 +202,45 @@ int gather(const uint32_t* bits, const int32_t* mult, const int32_t* flags,
   return (int)cudaGetLastError();
 }
 
+// The decode of K (KC = K, or 0 for a K without its own kernel): a warp per
+// (n, c) cell, as many warps a block as keep the scratch within 48 KiB,
+// one warp (opted in past 48 KiB) where one cell's words need more.
+template <int KC>
+int decode(int K, const void* words, const void* counts, uint32_t* bits,
+           int32_t* mult, int32_t* flags, int N, long long words_stride,
+           long long counts_stride, int C_in, int D, int n_win, int nbits,
+           cudaStream_t stream) {
+  const int n_cells = N * C_in;
+  const size_t cell_bytes =
+      sizeof(uint32_t) * K * K * (((size_t)n_win * n_win + 31) / 32);
+  if (cell_bytes > (size_t)spike_accum::kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  const int warps =
+      (int)std::max<size_t>(1, std::min<size_t>(kWarps, 49152 / cell_bytes));
+  if (warps * cell_bytes > 49152) {
+    const int err = spike_accum::opt_in_smem<event_accum_decode_kernel<KC>>();
+    if (err != 0) return err;
+  }
+  event_accum_decode_kernel<KC>
+      <<<(n_cells + warps - 1) / warps, warps * 32, warps * cell_bytes,
+         stream>>>(static_cast<const int32_t*>(words),
+                   static_cast<const int32_t*>(counts), bits, mult, flags,
+                   words_stride, counts_stride, n_cells, C_in, D, n_win,
+                   nbits, K * K);
+  return (int)cudaGetLastError();
+}
+
 template <int K, typename T>
 int launch(const void* words, const void* counts, const void* w,
            const void* v_in, void* v_out, void* bits, void* mult,
            void* flags, int N, long long words_stride,
            long long counts_stride, int C_in, int D, int n_win, int nbits,
            int H, int W, int C_out, cudaStream_t stream) {
-  const int n_cells = N * C_in;
-  const int NW = (n_win * n_win + 31) / 32;
   uint32_t* b = static_cast<uint32_t*>(bits);
   int32_t* mu = static_cast<int32_t*>(mult);
   int32_t* fl = static_cast<int32_t*>(flags);
-  event_accum_decode_kernel<K>
-      <<<(n_cells + kWarps - 1) / kWarps, kWarps * 32,
-         sizeof(uint32_t) * kWarps * K * K * NW, stream>>>(
-          static_cast<const int32_t*>(words),
-          static_cast<const int32_t*>(counts), b, mu, fl, words_stride,
-          counts_stride, n_cells, C_in, D, n_win, nbits);
-  int err = (int)cudaGetLastError();
+  int err = decode<K>(K, words, counts, b, mu, fl, N, words_stride,
+                      counts_stride, C_in, D, n_win, nbits, stream);
   if (err != 0) return err;
   const long long n_tasks =
       (long long)N * ((H + K - 1) / K) * ((W + K - 1) / K);
@@ -206,6 +257,27 @@ int launch(const void* words, const void* counts, const void* w,
 }
 
 template <typename T>
+int launch_rt(int K, const void* words, const void* counts, const void* w,
+              const void* v_in, void* v_out, void* bits, void* mult,
+              void* flags, int N, long long words_stride,
+              long long counts_stride, int C_in, int D, int n_win, int nbits,
+              int H, int W, int C_out, cudaStream_t stream) {
+  uint32_t* b = static_cast<uint32_t*>(bits);
+  int32_t* mu = static_cast<int32_t*>(mult);
+  int32_t* fl = static_cast<int32_t*>(flags);
+  int err = decode<0>(K, words, counts, b, mu, fl, N, words_stride,
+                      counts_stride, C_in, D, n_win, nbits, stream);
+  if (err != 0) return err;
+  const long long n_pix = (long long)N * H * W;
+  dim3 grid((unsigned)((n_pix + kWarps - 1) / kWarps),
+            (C_out + kTile - 1) / kTile);
+  event_accum_gather_kernel_rt<T><<<grid, kWarps * 32, 0, stream>>>(
+      b, mu, fl, static_cast<const float*>(w), static_cast<const T*>(v_in),
+      static_cast<T*>(v_out), n_pix, C_in, K, n_win, H, W, C_out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_k(int K, const void* words, const void* counts, const void* w,
              const void* v_in, void* v_out, void* bits, void* mult,
              void* flags, int N, long long words_stride,
@@ -216,7 +288,9 @@ int launch_k(int K, const void* words, const void* counts, const void* w,
     case 3: return launch<3, T>(words, counts, w, v_in, v_out, bits, mult, flags, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
     case 5: return launch<5, T>(words, counts, w, v_in, v_out, bits, mult, flags, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
     case 7: return launch<7, T>(words, counts, w, v_in, v_out, bits, mult, flags, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (K < 1 || K % 2 == 0) return (int)cudaErrorInvalidValue;
+      return launch_rt<T>(K, words, counts, w, v_in, v_out, bits, mult, flags, N, words_stride, counts_stride, C_in, D, n_win, nbits, H, W, C_out, s);
   }
 }
 
@@ -230,9 +304,10 @@ extern "C" {
 // bits (N, C_in, K*K, ceil(n_win^2 / 32)) uint32 and flags (N, C_in)
 // int32 scratch, every word written by the decode; mult (N, C_in, K*K,
 // n_win^2) int32 scratch, written only for flagged cells; N, C_in, C_out
-// >= 1; K in {1, 3, 5, 7}. Returns the first non-zero cudaGetLastError()
-// of its two launches (cudaErrorInvalidValue for another K, or for a map
-// whose staged bits do not fit a block's shared memory).
+// >= 1; K odd (1, 3, 5, 7 unrolled, any other rolled). Returns the first
+// non-zero cudaGetLastError() of its two launches (cudaErrorInvalidValue
+// for an even K, or for a map whose staged bits, or one cell's decoded
+// words, do not fit a block's shared memory).
 int event_accum(const void* words, const void* counts, const void* w,
                 const void* v_in, void* v_out, void* bits, void* mult,
                 void* flags, int N, int words_stride, int counts_stride,

@@ -54,22 +54,34 @@
 // splits C_in, which would change the order of adds.
 //
 // The gather walks C_in in chunks of CC channels. A chunk's weights
-// (K*K, CC, 32) and the kept bits of the block's rows (rows, CC, K*K*NW)
-// are staged in shared memory with cp.async, double-buffered: the next
-// chunk loads while this one is added. The only barriers are between
-// chunks. Within a chunk lane l first gathers, for channel c0 + l, the 3x3
+// (K*K, CC, 32) and the kept bits its warps read are staged in shared
+// memory with cp.async, double-buffered: the next chunk loads while this
+// one is added. The only barriers are between chunks. A window cell (a, b)
+// reads window rows a-1..a+1 only, so per (row, channel, phase) queue a
+// block stages just the words that cover its cells' window rows plus one
+// row of halo on each side (a contiguous range of the row-major packing p
+// = wy * n_win + wx): SW words, set by the map's width, not its area
+// (staged_words). That is what lets maps of 512 x 512 and more run. Within a chunk lane l first gathers, for channel c0 + l, the 3x3
 // window neighbourhood of cell (a, b) in each phase queue (9 bits a phase,
 // three phases a word); the warp then walks the chunk's channels,
 // broadcasting each channel's words with shuffles. The branches are
 // warp-uniform. A pixel's window is the window grid [0, n_win*K), not
 // [0, H): the scatter form decodes events over the whole grid.
 //
-// B3's int path (Scaled) adds the quantized integer weights, which the
-// wrapper passes as fp32: every partial sum is an integer of magnitude at
-// most K*K * C_in * 127 < 2^24 (the wrapper checks it), so each fp32 add is
-// exact, in any order, and the sum equals the int32 one bit for bit, at the
-// fp32 rate, twice the int32 rate of an H100 SM. One __fmul_rn(acc, scale)
-// per output element dequantizes, as __fmul_rn(__int2float_rn(sum), scale).
+// B3's int path (Scaled) adds the quantized integer weights. Where every
+// partial sum is an integer of magnitude at most K*K * C_in * 127 < 2^24,
+// the wrapper passes them as fp32 and each fp32 add is exact, in any order,
+// so the sum equals the int32 one bit for bit, at the fp32 rate, twice the
+// int32 rate of an H100 SM. Past 2^24 the wrapper passes them as int32 and
+// the gather sums in int32 (IntAcc), exact in any order too. One
+// __fmul_rn(__int2float_rn(sum), scale) per output element dequantizes.
+//
+// K in {1, 3, 5, 7} runs the unrolled gather above. Every other odd K runs
+// gather_rt: one warp per output pixel, lane l its output channel, loops
+// rolled, c ascending and phase ascending as above (so it too equals the
+// ordered oracle bit for bit); the lanes look up 32 phases' kept bits at
+// once and a ballot walks the set ones in phase order. It stages nothing:
+// weights and bits come through L1, so it has no limit on K or the map.
 //
 // What bounds it on an H100: the occupancy read (once, in pass 1) and the
 // charge write are the device-memory traffic; the work is one add per
@@ -81,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace spike_accum {
 // Internal linkage: every library that includes this header keeps its own
@@ -115,14 +129,34 @@ inline __host__ __device__ int rows_spanned(int tasks, int cells) {
   return (tasks + cells - 2) / cells + 1;
 }
 
+// words a block stages per (row, channel, phase) queue: the window rows
+// that Cells consecutive cells of one row can span (cells_x to a window
+// row, cells_y rows), one row of halo on each side, and one word for the
+// range's start inside a word; never more than the queue's NW words
+inline __host__ __device__ int staged_words(int Cells, int n_win, int cells_x,
+                                            int cells_y) {
+  const int NW = (n_win * n_win + 31) >> 5;
+  const int rows = min(rows_spanned(Cells, cells_x), cells_y) + 2;
+  return min(NW, (rows * n_win + 31) / 32 + 1);
+}
+
+// the first staged word of a queue for a block whose cells in this row
+// start in window row a (the row above it is the halo)
+inline __host__ __device__ int first_word(int a, int n_win) {
+  return (max(a - 1, 0) * n_win) >> 5;
+}
+
+// The shared memory of a gather block (kernels/spike_pipeline.py's
+// gather_smem computes the same number): two buffers of one chunk's weights
+// and of the staged words of the rows its cells span.
 template <int K, int Cells = kWarps>
 inline size_t gather_smem(int n_win, int H, int W) {
   constexpr int K2 = K * K, CC = chunk_channels<K>();
-  const int NW = (n_win * n_win + 31) / 32;
-  const int cells = ((H + K - 1) / K) * ((W + K - 1) / K);
+  const int cells_x = (W + K - 1) / K, cells_y = (H + K - 1) / K;
+  const int SW = staged_words(Cells, n_win, cells_x, cells_y);
   return 4 * (2 * (size_t)K2 * CC * kTile
-              + 2 * (size_t)rows_spanned(Cells, cells) * CC
-                    * cell_words(K2, NW));
+              + 2 * (size_t)rows_spanned(Cells, cells_x * cells_y) * CC
+                    * cell_words(K2, SW));
 }
 
 // warps of a gather block: one per window cell, or K with Split
@@ -149,6 +183,19 @@ template <typename T>
 __device__ __forceinline__ float add_rounded(float acc, float w) {
   return widen(narrow<T>(acc + w));
 }
+// one add into a sum: fp32 rounded to T, or exact int32 (IntAcc)
+template <typename T>
+__device__ __forceinline__ float accumulate(float acc, float w) {
+  return add_rounded<T>(acc, w);
+}
+template <typename T>
+__device__ __forceinline__ int32_t accumulate(int32_t acc, int32_t w) {
+  return acc + w;
+}
+__device__ __forceinline__ float to_float(float a) { return a; }
+__device__ __forceinline__ float to_float(int32_t a) {
+  return __int2float_rn(a);
+}
 
 // For pixel i of a cell and phase k: the offset d = (k - i + pad) mod K,
 // and the neighbouring cell ro in {-1, 0, 1} that holds the one position
@@ -174,9 +221,9 @@ __host__ __device__ constexpr bool reaches(int k, int ro) {
 // Adds one input channel's kept events to the sums acc[0, K) of pixel row
 // I of a window cell, phase ascending per pixel (the order of adds): m
 // holds the channel's 3x3 neighbourhood bits, wr its K*K weights.
-template <int K, int I, typename T>
-__device__ __forceinline__ void add_row(float* acc, const unsigned* m,
-                                        const float* wr) {
+template <int K, int I, typename T, typename A, typename WT>
+__device__ __forceinline__ void add_row(A* acc, const unsigned* m,
+                                        const WT* wr) {
 #pragma unroll
   for (int j = 0; j < K; ++j) {
 #pragma unroll
@@ -185,7 +232,7 @@ __device__ __forceinline__ void add_row(float* acc, const unsigned* m,
       const int bit = (ph % 3) * 9 + (cell_of<K>(I, ky) + 1) * 3
                       + (cell_of<K>(j, kx) + 1);
       if ((m[ph / 3] >> bit) & 1u)
-        acc[j] = add_rounded<T>(
+        acc[j] = accumulate<T>(
             acc[j], wr[offset_of<K>(I, ky) * K + offset_of<K>(j, kx)]);
     }
   }
@@ -194,9 +241,10 @@ __device__ __forceinline__ void add_row(float* acc, const unsigned* m,
 // The pixel rows a warp holds: all K (acc[K*K]), or with Split row i0 only
 // (acc[K]), picked by a warp-uniform branch, so that every bit position,
 // weight index and sum stays a compile-time constant.
-template <int K, typename T, bool Split, int I = 0>
-__device__ __forceinline__ void add_rows(float* acc, const unsigned* m,
-                                         const float* wr, int i0) {
+template <int K, typename T, bool Split, int I = 0, typename A,
+          typename WT>
+__device__ __forceinline__ void add_rows(A* acc, const unsigned* m,
+                                         const WT* wr, int i0) {
   if constexpr (I < K) {
     if (!Split)
       add_row<K, I, T>(acc + I * K, m, wr);
@@ -255,9 +303,10 @@ __device__ __forceinline__ void add_rows_repeated(float* acc,
 // set in `repeats` take add_rows_repeated with their multiplicities (mq:
 // the chunk's first channel's, K*K*n_win^2 apart); the others, and every
 // chunk without such a channel, run the same adds as B1 and B3.
-template <int K, typename T, bool Split, bool WithRepeats>
-__device__ __forceinline__ void add_chunk(float* acc, const unsigned* nb,
-                                          const float* wb, int live, int i0,
+template <int K, typename T, bool Split, bool WithRepeats, typename A,
+          typename WT>
+__device__ __forceinline__ void add_chunk(A* acc, const unsigned* nb,
+                                          const WT* wb, int live, int i0,
                                           unsigned repeats = 0u,
                                           const int32_t* mq = nullptr,
                                           int a = 0, int b = 0,
@@ -282,7 +331,7 @@ __device__ __forceinline__ void add_chunk(float* acc, const unsigned* nb,
         continue;
       }
     }
-    float wr[K2];
+    WT wr[K2];
 #pragma unroll
     for (int kk = 0; kk < K2; ++kk)
       wr[kk] = wb[(kk * CC + c) * kTile + lane];
@@ -355,9 +404,11 @@ __device__ __forceinline__ void encode(
 // every add is rounded to T, the type of v_in and out. Mult (B4): a (row,
 // channel) cell whose flags entry is set takes its kept positions'
 // multiplicities from mult (rows, C_in, K*K, n_win^2); other cells add
-// each kept position once and read no multiplicity.
+// each kept position once and read no multiplicity. IntAcc (B3 past 2^24):
+// w holds int32 weights and the sums are int32.
 template <int K, bool Scaled, bool Init = false, typename T = float,
-          int Cells = kWarps, bool Split = false, bool Mult = false>
+          int Cells = kWarps, bool Split = false, bool Mult = false,
+          bool IntAcc = false>
 __device__ __forceinline__ void gather(
     const uint32_t* __restrict__ bits, const float* __restrict__ w,
     const float* __restrict__ w_scale, const int32_t* __restrict__ cell_tot,
@@ -366,15 +417,21 @@ __device__ __forceinline__ void gather(
     const T* __restrict__ v_in = nullptr,
     const int32_t* __restrict__ mult = nullptr,
     const int32_t* __restrict__ flags = nullptr) {
+  using A = typename std::conditional<IntAcc, int32_t, float>::type;
   constexpr int K2 = K * K, CC = chunk_channels<K>();
   constexpr int NB = (K2 + 2) / 3;  // neighbourhood words, 3 phases each
   extern __shared__ __align__(16) unsigned char smem[];
-  const int NW = (n_win * n_win + 31) >> 5, CW = cell_words(K2, NW);
+  const int NW = (n_win * n_win + 31) >> 5;
   const int cells_x = (W + K - 1) / K, cells = ((H + K - 1) / K) * cells_x;
+  const int SW = staged_words(Cells, n_win, cells_x, (H + K - 1) / K);
+  const int CW = cell_words(K2, SW);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t0 = blockIdx.x * Cells;
   const int r_first = t0 / cells;
   const int span = (min(t0 + Cells, n_tasks) - 1) / cells - r_first + 1;
+  // the first staged word of every queue of the first row (its cells start
+  // at window row (t0 % cells) / cells_x); later rows start at cell 0
+  const int w_first = first_word((t0 - r_first * cells) / cells_x, n_win);
   const int co0 = blockIdx.y * kTile;
   const int wbuf = K2 * CC * kTile;                        // per buffer
   const int bbuf = rows_spanned(Cells, cells) * CC * CW;   // per buffer
@@ -385,8 +442,8 @@ __device__ __forceinline__ void gather(
 
   auto row_of = [&](int r) { return order != nullptr ? order[r] : r; };
   // channels [c0, c0 + CC) of [0, C_in) into buffer s & 1; the words for
-  // channels past C_in or outputs past C_out are never staged, and never
-  // reach a written result
+  // channels past C_in, outputs past C_out or past a queue's NW words are
+  // never staged, and never reach a written result
   auto stage = [&](int s) {
     const int c0 = s * CC, live = min(CC, C_in - c0);
     float* wd = w_s + (s & 1) * wbuf;
@@ -403,13 +460,18 @@ __device__ __forceinline__ void gather(
           cp_async4(dst + e, src + e);
       }
     }
+    // one thread a (row, channel, phase) queue: its words [w0, w0 + SW)
     uint32_t* bd = b_s + (s & 1) * bbuf;
-    const int q_row = K2 * NW, per_row = live * q_row;
+    const int per_row = live * K2;
     for (int i = threadIdx.x; i < span * per_row; i += blockDim.x) {
-      const int rr = i / per_row, cl = (i % per_row) / q_row, q = i % q_row;
-      cp_async4(bd + (rr * CC + cl) * CW + q,
-                bits + ((size_t)row_of(r_first + rr) * C_in + c0 + cl) * q_row
-                    + q);
+      const int rr = i / per_row, cq = i - rr * per_row;  // cl * K2 + ph
+      const int cl = cq / K2;
+      const int w0 = rr == 0 ? w_first : 0, n = min(SW, NW - w0);
+      const uint32_t* src =
+          bits + ((size_t)row_of(r_first + rr) * C_in + c0) * K2 * NW
+          + (size_t)cq * NW + w0;
+      uint32_t* dst = bd + (rr * CC + cl) * CW + (cq - cl * K2) * SW;
+      for (int q = 0; q < n; ++q) cp_async4(dst + q, src + q);
     }
     cp_async_commit();
   };
@@ -422,18 +484,21 @@ __device__ __forceinline__ void gather(
   const int cell = task ? t - r * cells : 0;
   const int a = cell / cells_x, b = cell - (cell / cells_x) * cells_x;
   const int row = task ? row_of(r) : 0;
+  const int w_lo = r == r_first ? w_first : 0;  // this row's first word
 
   const int oc = co0 + lane;  // this lane's output channel
-  float acc[R * K];
+  A acc[R * K];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int ty = a * K + i0 + i, tx = b * K + j;
-      acc[i * K + j] =
-          Init && task && oc < C_out && ty < H && tx < W
-              ? widen(v_in[(((size_t)row * H + ty) * W + tx) * C_out + oc])
-              : 0.f;
+      acc[i * K + j] = 0;
+      if constexpr (Init) {
+        if (task && oc < C_out && ty < H && tx < W)
+          acc[i * K + j] =
+              widen(v_in[(((size_t)row * H + ty) * W + tx) * C_out + oc]);
+      }
     }
   }
 
@@ -474,7 +539,8 @@ __device__ __forceinline__ void gather(
             const int wx = b + co;
             if (!reaches<K>(ph % K, co) || wx < 0 || wx >= n_win) continue;
             const int p = wy * n_win + wx;
-            nb[ph / 3] |= ((cb[ph * NW + (p >> 5)] >> (p & 31)) & 1u)
+            const uint32_t word = cb[ph * SW + (p >> 5) - w_lo];
+            nb[ph / 3] |= ((word >> (p & 31)) & 1u)
                           << ((ph % 3) * 9 + (ro + 1) * 3 + (co + 1));
           }
         }
@@ -486,13 +552,18 @@ __device__ __forceinline__ void gather(
     unsigned repeats = 0u;
     if constexpr (Mult) repeats = __ballot_sync(0xffffffffu, flagged);
     if (__any_sync(0xffffffffu, any != 0u)) {
-      if (Mult && repeats != 0u)  // warp-uniform: a channel here repeats
-        add_chunk<K, T, Split, Mult>(
-            acc, nb, wb, live, i0, repeats,
-            mult + ((size_t)row * C_in + c0) * K2 * n_win * n_win, a, b,
-            n_win);
-      else
-        add_chunk<K, T, Split, false>(acc, nb, wb, live, i0);
+      if constexpr (IntAcc) {
+        add_chunk<K, T, Split, false>(
+            acc, nb, reinterpret_cast<const int32_t*>(wb), live, i0);
+      } else {
+        if (Mult && repeats != 0u)  // warp-uniform: a channel here repeats
+          add_chunk<K, T, Split, Mult>(
+              acc, nb, wb, live, i0, repeats,
+              mult + ((size_t)row * C_in + c0) * K2 * n_win * n_win, a, b,
+              n_win);
+        else
+          add_chunk<K, T, Split, false>(acc, nb, wb, live, i0);
+      }
     }
     __syncthreads();  // the next stage overwrites this chunk's buffer
   }
@@ -505,10 +576,88 @@ __device__ __forceinline__ void gather(
     for (int j = 0; j < K; ++j) {
       const int ty = a * K + i0 + i, tx = b * K + j;
       if (ty >= H || tx >= W) continue;
-      out[(((size_t)row * H + ty) * W + tx) * C_out + oc] = narrow<T>(
-          Scaled ? __fmul_rn(acc[i * K + j], scale) : acc[i * K + j]);
+      const float v = to_float(acc[i * K + j]);
+      out[(((size_t)row * H + ty) * W + tx) * C_out + oc] =
+          narrow<T>(Scaled ? __fmul_rn(v, scale) : v);
     }
   }
+}
+
+// The gather for any odd K (see the header): grid (ceil(n_rows * H * W /
+// kWarps), ceil(C_out / 32)), kWarps warps a block, no shared memory and
+// no barrier; warp t takes output pixel t % (H * W) of row order[t / (H *
+// W)] (row t / (H * W) when order is null), lane l output channel
+// blockIdx.y * 32 + l. Per channel c (ascending; skipped where cell_tot
+// says the cell is empty) lane l looks up phase q0 + l of each 32 (the one
+// position of that phase in the pixel's window, its offset (dy, dx), and
+// its kept bit, or with Mult on a flagged cell its multiplicity); a ballot
+// then walks the phases that add, lowest first, each weight added as many
+// times as its multiplicity, back to back. The arguments mean what they
+// mean for gather.
+template <bool Scaled, bool Init = false, typename T = float,
+          bool Mult = false, bool IntAcc = false>
+__device__ __forceinline__ void gather_rt(
+    const uint32_t* __restrict__ bits, const float* __restrict__ w,
+    const float* __restrict__ w_scale, const int32_t* __restrict__ cell_tot,
+    const int32_t* __restrict__ order, T* __restrict__ out, long long n_pix,
+    int C_in, int K, int n_win, int H, int W, int C_out,
+    const T* __restrict__ v_in = nullptr,
+    const int32_t* __restrict__ mult = nullptr,
+    const int32_t* __restrict__ flags = nullptr) {
+  using A = typename std::conditional<IntAcc, int32_t, float>::type;
+  const int lane = threadIdx.x & 31;
+  const long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t >= n_pix) return;  // warp-uniform
+  const int r = (int)(t / ((long long)H * W));
+  const int pix = (int)(t - (long long)r * H * W);
+  const int ty = pix / W, tx = pix - (pix / W) * W;
+  const int row = order != nullptr ? order[r] : r;
+  const int oc = blockIdx.y * kTile + lane;
+  const bool has_oc = oc < C_out;
+  const int K2 = K * K, pad = K / 2, side = n_win * K;
+  const int P = n_win * n_win, NW = (P + 31) >> 5;
+  const size_t o = (((size_t)row * H + ty) * W + tx) * C_out + oc;
+  A acc = 0;
+  if constexpr (Init) {
+    if (has_oc) acc = widen(v_in[o]);
+  }
+  const A* wa = reinterpret_cast<const A*>(w);
+  for (int c = 0; c < C_in; ++c) {
+    const size_t cell = (size_t)row * C_in + c;
+    if (cell_tot != nullptr && cell_tot[cell] == 0) continue;  // uniform
+    const bool flagged = Mult && flags[cell] != 0;             // uniform
+    const uint32_t* cb = bits + cell * K2 * NW;
+    for (int q0 = 0; q0 < K2; q0 += 32) {
+      const int ph = q0 + lane;
+      int times = 0, kk = 0;
+      if (ph < K2) {
+        const int ky = ph / K, kx = ph - (ph / K) * K;
+        const int dy = ((ky - ty + pad) % K + K) % K;
+        const int dx = ((kx - tx + pad) % K + K) % K;
+        const int y = ty - pad + dy, x = tx - pad + dx;
+        if (y >= 0 && y < side && x >= 0 && x < side) {
+          const int p = (y / K) * n_win + x / K;
+          times = flagged ? mult[(cell * K2 + ph) * P + p]
+                          : (int)((cb[ph * NW + (p >> 5)] >> (p & 31)) & 1u);
+          kk = dy * K + dx;
+        }
+      }
+      unsigned hit = __ballot_sync(0xffffffffu, times > 0);
+      while (hit != 0u) {  // warp-uniform
+        const int l = __ffs(hit) - 1;
+        hit &= hit - 1u;
+        const int k = __shfl_sync(0xffffffffu, kk, l);
+        const int n = __shfl_sync(0xffffffffu, times, l);
+        if (has_oc) {
+          const A wv = wa[((size_t)k * C_in + c) * C_out + oc];
+          for (int e = 0; e < n; ++e) acc = accumulate<T>(acc, wv);
+        }
+      }
+    }
+  }
+  if (!has_oc) return;
+  const float v = to_float(acc);
+  out[o] = narrow<T>(Scaled ? __fmul_rn(v, w_scale[0]) : v);
 }
 
 using EncodeKernel = void (*)(const int32_t*, uint32_t*, int32_t*, int32_t*,
@@ -566,6 +715,26 @@ int launch_gather(const uint32_t* bits,
       bits, static_cast<const float*>(w), static_cast<const float*>(w_scale),
       cell_tot, order, static_cast<float*>(out), (int)n_tasks, C_in, n_win,
       H, W, C_out);
+  return (int)cudaGetLastError();
+}
+
+using GatherRtKernel = void (*)(const uint32_t*, const float*, const float*,
+                                const int32_t*, const int32_t*, float*,
+                                long long, int, int, int, int, int, int);
+
+inline int launch_gather_rt(GatherRtKernel kernel, const uint32_t* bits,
+                            const void* w, const void* w_scale,
+                            const int32_t* cell_tot, const int32_t* order,
+                            void* out, int n_rows, int C_in, int K, int n_win,
+                            int H, int W, int C_out, cudaStream_t stream) {
+  const long long n_pix = (long long)n_rows * H * W;
+  if (n_pix == 0 || C_out == 0 || C_in == 0) return 0;
+  dim3 grid((unsigned)((n_pix + kWarps - 1) / kWarps),
+            (C_out + kTile - 1) / kTile);
+  kernel<<<grid, kWarps * 32, 0, stream>>>(
+      bits, static_cast<const float*>(w), static_cast<const float*>(w_scale),
+      cell_tot, order, static_cast<float*>(out), n_pix, C_in, K, n_win, H, W,
+      C_out);
   return (int)cudaGetLastError();
 }
 

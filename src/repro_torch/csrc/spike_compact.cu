@@ -27,7 +27,11 @@
 // coalesced 16-byte stores, plus scalar stores before the first 16-byte
 // boundary and after the last. The tile sits in shared memory at the same
 // offset mod 16 bytes as its destination, so both sides of each vector
-// copy are aligned. The result is integer work and bit-exact.
+// copy are aligned. A row too deep for one block's shared memory (depth
+// past 58,103 words) takes the same kernel without the tile (Staged =
+// false): the block fills its rows with `invalid` in device memory, and
+// after a barrier the groups write their events there directly. The result
+// is integer work and bit-exact.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,7 +41,7 @@ constexpr int kThreads = 256;      // most threads a block
 constexpr int kTileWords = 8192;   // words a block stages (32 KiB)
 constexpr int kSmemMax = 232448;   // shared memory one Hopper block may use
 
-template <int G>
+template <int G, bool Staged>
 __global__ void __launch_bounds__(kThreads)
 spike_compact_kernel(const int32_t* __restrict__ occ,
                      int32_t* __restrict__ words,
@@ -46,13 +50,17 @@ spike_compact_kernel(const int32_t* __restrict__ occ,
   extern __shared__ __align__(16) int32_t tile[];
   const int row0 = blockIdx.x * rows_per_block;
   const int nrows = min(rows_per_block, R - row0);
-  const int n = nrows * depth;  // the block's words
+  const long long n = (long long)nrows * depth;  // the block's words
   int32_t* dst = words + (size_t)row0 * depth;
   const int mis = (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
 
-  const int4 inv = make_int4(invalid, invalid, invalid, invalid);
-  for (int i = threadIdx.x; i < (mis + n + 3) / 4; i += blockDim.x)
-    reinterpret_cast<int4*>(tile)[i] = inv;
+  if constexpr (Staged) {
+    const int4 inv = make_int4(invalid, invalid, invalid, invalid);
+    for (int i = threadIdx.x; i < (mis + n + 3) / 4; i += blockDim.x)
+      reinterpret_cast<int4*>(tile)[i] = inv;
+  } else {
+    for (long long i = threadIdx.x; i < n; i += blockDim.x) dst[i] = invalid;
+  }
   __syncthreads();
 
   const int lane = threadIdx.x & 31, g = threadIdx.x / G;
@@ -61,7 +69,8 @@ spike_compact_kernel(const int32_t* __restrict__ occ,
   const unsigned below = (1u << gl) - 1u;
   const bool has_row = g < nrows;  // the group holds a row (block-tail)
   const int32_t* in = occ + (size_t)(row0 + g) * P;
-  int32_t* t = tile + mis + g * depth;
+  int32_t* t = Staged ? tile + mis + (size_t)g * depth
+                     : dst + (size_t)g * depth;
   constexpr int U = G == 32 ? 4 : 1;  // loads in flight per lane
   int count = 0;  // group-uniform write pointer
   for (int p0 = 0; p0 < P; p0 += U * G) {  // the same rounds in every group
@@ -83,10 +92,11 @@ spike_compact_kernel(const int32_t* __restrict__ occ,
     }
   }
   if (has_row && gl == 0) counts[row0 + g] = count;
+  if constexpr (!Staged) return;  // the events are already in place
   __syncthreads();
 
-  const int head = min((4 - mis) & 3, n);  // words before a 16-byte boundary
-  const int nv = (n - head) / 4;
+  const int head = (int)min((long long)((4 - mis) & 3), n);  // before a
+  const int nv = (int)((n - head) / 4);                      // 16-B boundary
   for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = tile[mis + i];
   const int4* src4 = reinterpret_cast<const int4*>(tile + mis + head);
   int4* dst4 = reinterpret_cast<int4*>(dst + head);
@@ -101,19 +111,25 @@ int launch(const void* occ, void* words, void* counts, int R, int P,
   const int rows = max(1, min(kThreads / G, kTileWords / depth));
   const int threads = (rows * G + 31) / 32 * 32;
   const size_t smem = 4 * (((size_t)rows * depth + 3) / 4 * 4 + 4);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  const int blocks = (R + rows - 1) / rows;
+  auto args = [&](auto kernel, size_t bytes) {
+    kernel<<<blocks, threads, bytes, s>>>(
+        static_cast<const int32_t*>(occ), static_cast<int32_t*>(words),
+        static_cast<int32_t*>(counts), R, P, n_win, bits, depth, invalid,
+        rows);
+    return (int)cudaGetLastError();
+  };
+  if (smem > (size_t)kSmemMax)  // one row's words do not fit: no tile
+    return args(spike_compact_kernel<G, false>, 0);
   static bool opted_in = false;  // one flag per G, i.e. per kernel
   if (smem > 48 * 1024 && !opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        spike_compact_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemMax);
+        spike_compact_kernel<G, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
-  spike_compact_kernel<G><<<(R + rows - 1) / rows, threads, smem, s>>>(
-      static_cast<const int32_t*>(occ), static_cast<int32_t*>(words),
-      static_cast<int32_t*>(counts), R, P, n_win, bits, depth, invalid, rows);
-  return (int)cudaGetLastError();
+  return args(spike_compact_kernel<G, true>, smem);
 }
 
 }  // namespace
@@ -121,9 +137,7 @@ int launch(const void* occ, void* words, void* counts, int R, int P,
 extern "C" {
 
 // occ (R, P) int32 -> words (R, depth) int32, counts (R,) int32 (uncapped);
-// R, P, depth >= 1. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue when one row's depth words do not fit a block's
-// shared memory).
+// R, P, depth >= 1. Returns cudaGetLastError() after the launch.
 int spike_compact(const void* occ, void* words, void* counts, int R, int P,
                   int n_win, int bits, int depth, int invalid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -44,6 +44,20 @@ fused_spike_accum_gather(const uint32_t* __restrict__ bits,
                                 n_tasks, C_in, n_win, H, W, C_out);
 }
 
+// any other odd K: the rolled gather, one warp per output pixel
+__global__ void __launch_bounds__(kWarps * 32)
+fused_spike_accum_gather_rt(const uint32_t* __restrict__ bits,
+                            const float* __restrict__ w,
+                            const float* __restrict__ w_scale,
+                            const int32_t* __restrict__ cell_tot,
+                            const int32_t* __restrict__ order,
+                            float* __restrict__ out, long long n_pix,
+                            int C_in, int K, int n_win, int H, int W,
+                            int C_out) {
+  spike_accum::gather_rt<false>(bits, w, w_scale, cell_tot, order, out,
+                                n_pix, C_in, K, n_win, H, W, C_out);
+}
+
 template <int K>
 int gather(const uint32_t* bits, const void* w, void* out, int N, int C_in,
            int n_win, int H, int W, int C_out, cudaStream_t s) {
@@ -58,13 +72,14 @@ extern "C" {
 
 // occ (N, C_in, K*K, n_win*n_win) int32, w (K, K, C_in, C_out) fp32,
 // scratch N*C_in*K*K*ceil(n_win^2 / 32) uint32 (the kept bits), out (N, H,
-// W, C_out) fp32; K in {1, 3, 5, 7}. Returns the first non-zero
-// cudaGetLastError() of its launches (cudaErrorInvalidValue for another K,
-// or for a map whose staged bits do not fit a block's shared memory).
+// W, C_out) fp32; K odd (1, 3, 5, 7 unrolled, any other rolled). Returns
+// the first non-zero cudaGetLastError() of its launches
+// (cudaErrorInvalidValue for an even K, or for a map whose staged bits do
+// not fit a block's shared memory).
 int fused_spike_accum(const void* occ, const void* w, void* scratch,
                       void* out, int N, int C_in, int K, int n_win,
                       int depth, int H, int W, int C_out, void* stream) {
-  if (K != 1 && K != 3 && K != 5 && K != 7) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K % 2 == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* bits = static_cast<uint32_t*>(scratch);
   const int err = spike_accum::launch_encode(
@@ -75,7 +90,11 @@ int fused_spike_accum(const void* occ, const void* w, void* scratch,
     case 1: return gather<1>(bits, w, out, N, C_in, n_win, H, W, C_out, s);
     case 3: return gather<3>(bits, w, out, N, C_in, n_win, H, W, C_out, s);
     case 5: return gather<5>(bits, w, out, N, C_in, n_win, H, W, C_out, s);
-    default: return gather<7>(bits, w, out, N, C_in, n_win, H, W, C_out, s);
+    case 7: return gather<7>(bits, w, out, N, C_in, n_win, H, W, C_out, s);
+    default:
+      return spike_accum::launch_gather_rt(
+          fused_spike_accum_gather_rt, bits, w, nullptr, nullptr, nullptr,
+          out, N, C_in, K, n_win, H, W, C_out, s);
   }
 }
 

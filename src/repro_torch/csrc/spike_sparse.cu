@@ -20,9 +20,11 @@
 // - the gather of spike_accum.cuh over those rows' output pixels, each lane
 //   skipping its empty cells. The grid runs over pixels as well as rows, so
 //   a few active rows still fill the card.
-// - quant != 0: the weights arrive as the symmetric-quantized integers in
-//   fp32, the accumulate is exact (spike_accum.cuh says why), and one fp32
-//   multiply by the scale dequantizes each output: bit-exact in any order.
+// - quant != 0: the weights arrive as the symmetric-quantized integers, in
+//   fp32 while every sum stays below 2^24 (quant 1) and in int32 past it
+//   (quant 2, summed in int32); the accumulate is exact either way
+//   (spike_accum.cuh says why), and one fp32 multiply by the scale
+//   dequantizes each output: bit-exact in any order.
 //
 // The gather adds in B1's (c, phase) order, so the fp32 result equals B1's
 // bit for bit, and a row's result does not depend on the other rows of the
@@ -46,7 +48,7 @@ sparse_encode_kernel(const int32_t* __restrict__ occ,
                       depth);
 }
 
-template <int K, bool Scaled>
+template <int K, bool Scaled, bool IntAcc>
 __global__ void
 __launch_bounds__(kWarps * 32, spike_accum::min_blocks<K>())
 sparse_gather_kernel(const uint32_t* __restrict__ bits,
@@ -56,21 +58,41 @@ sparse_gather_kernel(const uint32_t* __restrict__ bits,
                      const int32_t* __restrict__ order,
                      float* __restrict__ out, int n_tasks, int C_in,
                      int n_win, int H, int W, int C_out) {
-  spike_accum::gather<K, Scaled>(bits, w, w_scale, cell_tot, order, out,
-                                 n_tasks, C_in, n_win, H, W, C_out);
+  spike_accum::gather<K, Scaled, false, float, kWarps, false, false, IntAcc>(
+      bits, w, w_scale, cell_tot, order, out, n_tasks, C_in, n_win, H, W,
+      C_out);
 }
 
-template <bool Scaled>
+// any other odd K: the rolled gather, one warp per output pixel
+template <bool Scaled, bool IntAcc>
+__global__ void __launch_bounds__(kWarps * 32)
+sparse_gather_kernel_rt(const uint32_t* __restrict__ bits,
+                        const float* __restrict__ w,
+                        const float* __restrict__ w_scale,
+                        const int32_t* __restrict__ cell_tot,
+                        const int32_t* __restrict__ order,
+                        float* __restrict__ out, long long n_pix, int C_in,
+                        int K, int n_win, int H, int W, int C_out) {
+  spike_accum::gather_rt<Scaled, false, float, false, IntAcc>(
+      bits, w, w_scale, cell_tot, order, out, n_pix, C_in, K, n_win, H, W,
+      C_out);
+}
+
+template <bool Scaled, bool IntAcc>
 int gather(int K, const uint32_t* bits, const void* w, const void* w_scale,
            const int32_t* cell_tot, const int32_t* order, void* out,
            int n_rows, int C_in, int n_win, int H, int W, int C_out,
            cudaStream_t s) {
   using spike_accum::launch_gather;
   switch (K) {
-    case 1: return launch_gather<1, sparse_gather_kernel<1, Scaled>>(bits, w, w_scale, cell_tot, order, out, n_rows, C_in, n_win, H, W, C_out, s);
-    case 3: return launch_gather<3, sparse_gather_kernel<3, Scaled>>(bits, w, w_scale, cell_tot, order, out, n_rows, C_in, n_win, H, W, C_out, s);
-    case 5: return launch_gather<5, sparse_gather_kernel<5, Scaled>>(bits, w, w_scale, cell_tot, order, out, n_rows, C_in, n_win, H, W, C_out, s);
-    default: return launch_gather<7, sparse_gather_kernel<7, Scaled>>(bits, w, w_scale, cell_tot, order, out, n_rows, C_in, n_win, H, W, C_out, s);
+    case 1: return launch_gather<1, sparse_gather_kernel<1, Scaled, IntAcc>>(bits, w, w_scale, cell_tot, order, out, n_rows, C_in, n_win, H, W, C_out, s);
+    case 3: return launch_gather<3, sparse_gather_kernel<3, Scaled, IntAcc>>(bits, w, w_scale, cell_tot, order, out, n_rows, C_in, n_win, H, W, C_out, s);
+    case 5: return launch_gather<5, sparse_gather_kernel<5, Scaled, IntAcc>>(bits, w, w_scale, cell_tot, order, out, n_rows, C_in, n_win, H, W, C_out, s);
+    case 7: return launch_gather<7, sparse_gather_kernel<7, Scaled, IntAcc>>(bits, w, w_scale, cell_tot, order, out, n_rows, C_in, n_win, H, W, C_out, s);
+    default:
+      return spike_accum::launch_gather_rt(
+          sparse_gather_kernel_rt<Scaled, IntAcc>, bits, w, w_scale,
+          cell_tot, order, out, n_rows, C_in, K, n_win, H, W, C_out, s);
   }
 }
 
@@ -108,21 +130,24 @@ sparse_rows_kernel(const int32_t* __restrict__ row_act,
 
 extern "C" {
 
-// occ (N, C_in, K*K, n_win*n_win) int32; w (K, K, C_in, C_out) fp32, the
-// quantized integers with quant != 0 (|sum| < 2^24), and then w_scale a
-// 0-d fp32 on the device (else unused); scratch N*C_in*K*K*ceil(n_win^2 /
-// 32) + N*C_in + 2*N int32 (kept bits, cell totals, row activity, row
-// order); out (N, H, W, C_out) fp32, zeros in every row past the first
-// n_rows active-first rows (the caller zero-fills it when n_rows < N). K in
-// {1, 3, 5, 7}. Returns the first non-zero error of its launches
-// (cudaErrorInvalidValue for another K, or for a map whose staged bits do
-// not fit a block's shared memory).
+// occ (N, C_in, K*K, n_win*n_win) int32; w (K, K, C_in, C_out): fp32
+// with quant 0; the quantized integers as fp32 with quant 1 (every |sum|
+// below 2^24, summed in fp32) or as int32 with quant 2 (summed in int32),
+// and then w_scale a 0-d fp32 on the device (else unused); scratch
+// N*C_in*K*K*ceil(n_win^2 / 32) + N*C_in + 2*N int32 (kept bits, cell
+// totals, row activity, row order); out (N, H, W, C_out) fp32, zeros in
+// every row past the first n_rows active-first rows (the caller zero-fills
+// it when n_rows < N). K odd (1, 3, 5, 7 unrolled, any other rolled).
+// Returns the first non-zero error of its launches (cudaErrorInvalidValue
+// for an even K, or for a map whose staged bits do not fit a block's
+// shared memory).
 int fused_spike_accum_sparse(const void* occ, const void* w,
                              const void* w_scale, void* scratch, void* out,
                              int N, int n_rows, int C_in, int K, int n_win,
                              int depth, int H, int W, int C_out, int quant,
                              void* stream) {
-  if (K != 1 && K != 3 && K != 5 && K != 7) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K % 2 == 0 || quant < 0 || quant > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int K2 = K * K, P = n_win * n_win;
   uint32_t* bits = static_cast<uint32_t*>(scratch);
@@ -140,11 +165,14 @@ int fused_spike_accum_sparse(const void* occ, const void* w,
   err = (int)cudaGetLastError();
   if (err != 0 || n_rows == 0) return err;
 
-  if (quant != 0)
-    return gather<true>(K, bits, w, w_scale, cell_tot, order, out,
-                           n_rows, C_in, n_win, H, W, C_out, s);
-  return gather<false>(K, bits, w, w_scale, cell_tot, order, out, n_rows,
-                       C_in, n_win, H, W, C_out, s);
+  if (quant == 2)
+    return gather<true, true>(K, bits, w, w_scale, cell_tot, order, out,
+                              n_rows, C_in, n_win, H, W, C_out, s);
+  if (quant == 1)
+    return gather<true, false>(K, bits, w, w_scale, cell_tot, order, out,
+                               n_rows, C_in, n_win, H, W, C_out, s);
+  return gather<false, false>(K, bits, w, w_scale, cell_tot, order, out,
+                              n_rows, C_in, n_win, H, W, C_out, s);
 }
 
 }  // extern "C"

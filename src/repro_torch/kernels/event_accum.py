@@ -19,7 +19,8 @@ a new membrane; the input is kept.
   words into packed kept bits and, for a (n, c) cell whose queues repeat a
   position, the multiplicity of each position (:func:`event_bits_plain`
   and :func:`event_mult_plain` are its plain versions), then the gather of
-  ``csrc/spike_accum.cuh`` starting from the membrane;
+  ``csrc/spike_accum.cuh`` starting from the membrane (unrolled for K in
+  {1, 3, 5, 7}, rolled for any other odd K);
 - :func:`event_accum_plain` — the reference ``event_conv2d``'s order:
   offset by offset, every live event in (n, c, phase, slot) order.
 
@@ -40,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .spike_pipeline import check_gather_fits
+from .spike_pipeline import _SMEM_MAX, check_gather_fits
 
 
 def _decode(words, counts, n_win, bits):
@@ -142,6 +143,16 @@ _ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 12
              + (ctypes.c_void_p,))
 
 
+def check_decode_fits(K, n_win):
+    """Raise unless one (n, c) cell's decoded bits (K² * ceil(n_win² / 32)
+    words, ``csrc/event_accum.cu``'s decode scratch) fit a block's shared
+    memory: every square map up to about 1,360 x 1,360 at any K."""
+    nbytes = 4 * K * K * -(-n_win * n_win // 32)
+    if nbytes > _SMEM_MAX:
+        raise ValueError(f"the decode of a {n_win}x{n_win}-window queue at "
+                         f"K={K} needs {nbytes} bytes of shared memory per "
+                         f"cell; the kernel has {_SMEM_MAX}")
+
 
 def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits,
                      bits_out=None):
@@ -177,6 +188,7 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits,
                          f"{tuple(weights.shape)}, v_mem "
                          f"{tuple(v_mem.shape)}, K={K}")
     check_gather_fits(K, n_win, H, W)
+    check_decode_fits(K, n_win)
     shape = (N, C_in, K2, -(-n_win * n_win // 32))
     if bits_out is not None and (
             bits_out.device != dev or bits_out.dtype != torch.int32

@@ -9,7 +9,8 @@ overflow as ``max(count - depth, 0)``):
 - :func:`spike_compact_cuda` — the CUDA kernel ``csrc/spike_compact.cu``
   (replaces the Pallas TPU kernel ``spike_compact``): a group of
   min(32, next power of two >= P) lanes per row, a block's rows staged in
-  shared memory and stored 16 bytes at a time;
+  shared memory and stored 16 bytes at a time (rows deeper than one
+  block's shared memory are written in place);
 - :func:`spike_compact_plain` — ``aeq.compact_spikes``'s cumsum and
   scatter.
 
@@ -41,7 +42,6 @@ def spike_compact_plain(occ, *, n_win, bits, depth, invalid):
     return words, fired.sum(1).to(torch.int32)
 
 
-_SMEM_MAX = 232_448    # shared memory one Hopper block may use
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
@@ -58,9 +58,6 @@ def spike_compact_cuda(occ, *, n_win, bits, depth, invalid):
         raise ValueError("occ must be contiguous")
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    if 4 * (depth + 8) > _SMEM_MAX:
-        raise ValueError(f"a row of depth {depth} does not fit the staged "
-                         f"tile of one block ({_SMEM_MAX} bytes)")
     R, P = occ.shape
     words = torch.empty((R, depth), dtype=torch.int32, device=occ.device)
     counts = torch.empty((R,), dtype=torch.int32, device=occ.device)

@@ -8,7 +8,8 @@ depth-``depth`` queue per (row, channel, phase):
 - :func:`fused_spike_accum_cuda` — the CUDA kernel ``csrc/spike_pipeline.cu``
   (replaces the Pallas TPU kernel ``fused_spike_accum_pallas``): packed
   kept bits, then a gather that adds into each output in (c, phase) order
-  (``csrc/spike_accum.cuh``, shared with B3);
+  (``csrc/spike_accum.cuh``, shared with B3 and B4; unrolled for K in
+  :data:`UNROLLED_K`, rolled for any other odd K);
 - :func:`fused_spike_accum_plain` — the ``fused_spike_accum_xla`` semantics:
   drop mask, rebuild the surviving 0/1 map in HWC order, one SAME conv.
 
@@ -40,6 +41,7 @@ def fused_spike_accum_plain(occ, weights, *, K, n_win, depth, H, W):
 _SMEM_MAX = 232_448    # shared memory one Hopper block may use
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
              + (ctypes.c_void_p,))
+UNROLLED_K = (1, 3, 5, 7)   # K with an unrolled gather; others run rolled
 
 
 def kept_bit_words(occ_shape) -> int:
@@ -48,20 +50,39 @@ def kept_bit_words(occ_shape) -> int:
     return N * C_in * K2 * (-(-P // 32))
 
 
-def check_gather_fits(K, n_win, H, W):
-    """Raise unless the gather (``csrc/spike_accum.cuh``) can stage one
-    chunk's weights and its rows' kept bits, double-buffered, in a block's
-    shared memory (the largest maps' bits are what may not fit)."""
-    if K not in (1, 3, 5, 7):
-        raise ValueError(f"the kernel is built for K in (1, 3, 5, 7), got {K}")
+def gather_smem(K, n_win, H, W):
+    """Bytes of shared memory a block of the unrolled gather
+    (``csrc/spike_accum.cuh``, ``gather_smem``, the same number) stages:
+    two buffers of one chunk's weights (K², CC, 32) and of its rows' kept
+    bits, ``SW`` words per (row, channel, phase) queue — the window rows
+    that the block's 8 consecutive window cells of a row span, plus one row
+    of halo on each side — so it grows with the map's width, not its area.
+    (B4's 2-cell blocks for small grids stage less.)"""
+    cells = 8
+    K2 = K * K
     cc = 32 if K <= 3 else (16 if K == 5 else 8)
-    cell_words = (K * K * -(-n_win * n_win // 32)) | 1
-    cells = -(-H // K) * -(-W // K)
-    rows = (8 + cells - 2) // cells + 1        # of 8 window cells a block
-    smem = 4 * (2 * K * K * cc * 32 + 2 * rows * cc * cell_words)
+    nw = -(-n_win * n_win // 32)
+    cells_x, cells_y = -(-W // K), -(-H // K)
+    rows = (cells + cells_x * cells_y - 2) // (cells_x * cells_y) + 1
+    win_rows = min((cells + cells_x - 2) // cells_x + 1, cells_y)
+    sw = min(nw, ((win_rows + 2) * n_win + 31) // 32 + 1)
+    return 4 * (2 * K2 * cc * 32 + 2 * rows * cc * ((K2 * sw) | 1))
+
+
+def check_gather_fits(K, n_win, H, W):
+    """Raise unless the gather of ``csrc/spike_accum.cuh`` runs this shape:
+    K odd; for K in :data:`UNROLLED_K`, :func:`gather_smem` within a block's
+    shared memory (every square map up to 3,488 x 3,488 at K = 1, 792 at
+    K = 3, 760 at K = 5 and 1,120 at K = 7). Any other odd K runs the
+    rolled gather, which stages nothing and has no such limit."""
+    if K < 1 or K % 2 == 0:
+        raise ValueError(f"the gather takes an odd K >= 1, got {K}")
+    if K not in UNROLLED_K:
+        return
+    smem = gather_smem(K, n_win, H, W)
     if smem > _SMEM_MAX:
-        raise ValueError(f"the kept bits of a {n_win}x{n_win}-window map "
-                         f"need {smem} bytes of shared memory per block; the "
+        raise ValueError(f"the kept bits of a {H}x{W} map at K={K} need "
+                         f"{smem} bytes of shared memory per block; the "
                          f"kernel has {_SMEM_MAX}")
 
 

@@ -12,7 +12,8 @@ exact integer sums, one fp32 dequant):
   ``csrc/spike_sparse.cu`` (replaces the Pallas TPU kernel
   ``fused_spike_accum_sparse_pallas``): the kept bits with per-cell gates,
   an active-first row order, and B1's gather (``csrc/spike_accum.cuh``)
-  over the first ``n_rows`` rows;
+  over the first ``n_rows`` rows, the int path summed in fp32 below 2^24
+  and in int32 past it;
 - :func:`fused_spike_accum_sparse_plain` — the event-list realization
   ``fused_spike_accum_sparse``: the drop rule, a prefix-sum compaction
   into an ``e_cap``-slot list in the oracle's flattened
@@ -137,6 +138,14 @@ _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10
              + (ctypes.c_void_p,))
 
 
+def int_sums_fit_fp32(K, C_in) -> bool:
+    """Whether every partial sum of the int path (at most K*K*C_in
+    quantized weights, each of magnitude <= 127) is an integer below 2^24,
+    exact in fp32: then the kernel adds the integers in fp32, else in
+    int32."""
+    return K * K * C_in * 127 < 2 ** 24
+
+
 def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, depth, H, W,
                                   n_rows=None, weight_bits=None):
     """Launch ``csrc/spike_sparse.cu`` on the current stream.
@@ -163,9 +172,6 @@ def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, depth, H, W,
     if weight_bits is not None and not 2 <= weight_bits <= 8:
         raise ValueError(f"the int path takes int8 weights: weight_bits in "
                          f"[2, 8], got {weight_bits}")
-    if weight_bits is not None and K * K * C_in * 127 >= 2 ** 24:
-        raise ValueError(f"the int path sums K*K*C_in = {K * K * C_in} "
-                         "int8 weights exactly in fp32 only below 2^24")
     n_rows = N if n_rows is None else int(n_rows)
     if not 0 <= n_rows <= N:
         raise ValueError(f"n_rows must be in [0, {N}], got {n_rows}")
@@ -176,11 +182,15 @@ def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, depth, H, W,
     out = alloc((N, H, W, C_out), dtype=torch.float32, device=dev)
     if N == 0:
         return out
+    quant = 0
     if weight_bits is not None:
-        # the integers in fp32: every partial sum is an integer below 2^24,
-        # so each add is exact and the sum is the int32 one
+        # the integers in fp32 while every partial sum is an integer below
+        # 2^24 (each add exact, the sum the int32 one, at the fp32 rate);
+        # past that in int32, summed in int32
         w_use, w_scale = quantize_symmetric(weights, weight_bits)
-        w_use = w_use.to(torch.float32).contiguous()
+        quant = 1 if int_sums_fit_fp32(K, C_in) else 2
+        w_use = w_use.to(torch.float32 if quant == 1 else torch.int32)
+        w_use = w_use.contiguous()
         scale_ptr = w_scale.data_ptr()
     else:
         w_use, scale_ptr = weights, None
@@ -193,6 +203,6 @@ def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, depth, H, W,
     _cuda.launch_counts["fused_spike_accum_sparse"] += 1
     err = fn(occ.data_ptr(), w_use.data_ptr(), scale_ptr, scratch.data_ptr(),
              out.data_ptr(), N, n_rows, C_in, K, n_win, depth, H, W, C_out,
-             int(weight_bits is not None), _cuda.stream_ptr(dev))
+             quant, _cuda.stream_ptr(dev))
     _cuda.check_launch(err, "fused_spike_accum_sparse")
     return out

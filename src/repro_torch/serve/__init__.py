@@ -1,18 +1,23 @@
 """repro_torch.serve — the SNN serving runtime on the port's engine.
 
 - :class:`~.batching.BucketPolicy` — dynamic batching into padded buckets;
-- :class:`~.registry.ModelRegistry` — named models on one device;
+- :class:`~.registry.ModelRegistry` — named models on one device, each with
+  a plan per bucket (a captured CUDA graph on the card);
 - :class:`~.runtime.ServeRuntime` — admission queue + batcher +
-  per-request energy metering through ``study.price_record``.
+  per-request energy metering through ``study.price_record``, on a wall or
+  virtual clock;
+- :mod:`~.bench` — the closed- and open-loop load generator
+  (``python -m repro_torch.serve.bench``).
 """
 from .api import InferRequest, InferResponse, ServeError  # noqa: F401
 from .batching import DEFAULT_BUCKETS, BucketPolicy  # noqa: F401
-from .registry import ModelHandle, ModelRegistry  # noqa: F401
+from .registry import (EagerPlan, GraphPlan, ModelHandle,  # noqa: F401
+                       ModelRegistry)
 from .runtime import ServeRuntime  # noqa: F401
 
 __all__ = [
     "InferRequest", "InferResponse", "ServeError",
     "BucketPolicy", "DEFAULT_BUCKETS",
-    "ModelHandle", "ModelRegistry",
+    "EagerPlan", "GraphPlan", "ModelHandle", "ModelRegistry",
     "ServeRuntime",
 ]

@@ -19,7 +19,7 @@ class InferRequest:
     rid: int
     model: str
     image: np.ndarray            # (H, W, C) float32, the model's geometry
-    arrival_s: float = 0.0       # perf_counter time at submit
+    arrival_s: float = 0.0       # clock time at submit (wall or virtual)
 
 
 @dataclasses.dataclass
@@ -51,3 +51,15 @@ class InferResponse:
     def latency_s(self) -> float:
         """End-to-end serving latency: queue wait + batch service."""
         return self.queue_wait_s + self.service_s
+
+    @property
+    def breakdown(self) -> dict:
+        """The per-request time breakdown, in waterfall order. The three
+        step parts telescope: ``batch_form_s + service_s + price_s ==
+        step_total_s`` up to float rounding."""
+        return {
+            "queue_wait_s": self.queue_wait_s,
+            "batch_form_s": self.batch_form_s,
+            "execute_s": self.service_s,
+            "price_s": self.price_s,
+        }

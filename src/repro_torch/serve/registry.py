@@ -1,9 +1,23 @@
-"""Named serving handles (port of ``repro.serve.registry``, no mesh/AOT/persistence).
+"""Multi-model registry: named serving handles + a plan per bucket (port of
+``repro.serve.registry``, without the mesh, persistence or study
+registration).
 
-A :class:`ModelHandle` owns one servable SNN — params and thresholds on
-its device, the engine config and the backend. PyTorch
-runs eagerly, so there is no per-bucket compiled plan to cache; a captured
-CUDA graph per bucket would take that place.
+A :class:`ModelHandle` owns one servable SNN — params and thresholds on its
+device, the engine config, a backend name, and the pricing options its
+responses are metered under. Per padded bucket size it holds a *plan* in an
+LRU-bounded cache, as the reference holds one AOT-compiled executable per
+bucket:
+
+- on the card a plan is a :class:`GraphPlan`, one CUDA graph captured from
+  the engine's batched call (``engine.batch_runner``) over a static input
+  buffer, the handle's params and thresholds (static on the device) and
+  static outputs. Serving a bucket copies its images in, replays the graph
+  (the plan's few hundred kernels in one launch from the host) and copies
+  the valid prefix out;
+- on the CPU (``device="cpu"``) a plan is the eager bucket-shaped call,
+  which fills the same cache and ``compile_count``.
+
+The :class:`ModelRegistry` LRU-bounds the handles themselves.
 """
 from __future__ import annotations
 
@@ -14,67 +28,211 @@ import torch
 
 from ..core import engine
 from ..device import resolve_device
+from ..kernels import ops
 from .api import ServeError
 from .batching import DEFAULT_BUCKETS
 
 
+def _slice_copies(logits, stats, n_valid: int):
+    """The valid prefix as tensors of its own (a later replay overwrites
+    the static outputs)."""
+    logits, stats = engine.slice_valid(logits, stats, n_valid)
+    return logits.clone(), engine.SNNStats(*(a.clone() for a in stats))
+
+
+class EagerPlan:
+    """A bucket's plan on the CPU: the engine's batched call, run eagerly."""
+
+    def __init__(self, runner, params, thresholds):
+        self.runner, self.params, self.thresholds = runner, params, thresholds
+
+    def __call__(self, images, n_valid: int):
+        logits, stats = self.runner(self.params, self.thresholds,
+                                    torch.from_numpy(images))
+        return engine.slice_valid(logits, stats, n_valid)
+
+
+class GraphPlan:
+    """A bucket's plan on the card: one captured CUDA graph.
+
+    The engine's batched call runs once eagerly on a side stream first (it
+    builds the kernels, sets their shared-memory opt-ins and lets cuDNN pick
+    its algorithms), then once under capture into ``pool``. ``launches``
+    holds the kernel launches the capture recorded (``ops.launch_counts``
+    moved by the wrappers during capture): every replay runs exactly these.
+    A capture that fails raises; nothing falls back to eager execution.
+    """
+
+    def __init__(self, runner, params, thresholds, shape, device, pool):
+        self.images = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.staging = torch.empty(shape, dtype=torch.float32,
+                                   pin_memory=True)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            runner(params, thresholds, self.images)
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = dict(ops.launch_counts)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.logits, self.stats = runner(params, thresholds, self.images)
+        self.launches = {k: ops.launch_counts[k] - before[k] for k in before}
+
+    def __call__(self, images, n_valid: int):
+        # host images go to the static input through pinned memory
+        np.copyto(self.staging.numpy(), images)
+        self.images.copy_(self.staging, non_blocking=True)
+        self.graph.replay()
+        return _slice_copies(self.logits, self.stats, n_valid)
+
+
 class ModelHandle:
-    """One servable model: artifacts on the device + the bucket runner."""
+    """One servable model: artifacts on its device + per-bucket plans."""
 
     def __init__(self, name: str, params, thresholds, cfg, *,
-                 backend: str = "queue_pallas", device=None):
+                 backend: str = "queue_pallas", vmem_resident: bool = True,
+                 plan_cache_size: int = 8, device=None):
         b = engine.get_backend(backend)      # fail fast on unknown names
         if getattr(b, "host_dispatch", False):
             raise ValueError(
                 f"backend {backend!r} dispatches on host-side occupancy "
-                "totals, so its plan cannot be AOT-lowered per bucket; "
-                "serve with 'queue_pallas' (same semantics, static plan)")
+                "totals, so its plan cannot be captured per bucket; serve "
+                "with 'queue_pallas' (same semantics, static plan)")
+        if plan_cache_size < 1:
+            raise ValueError(                # 0 would recapture every batch
+                f"plan_cache_size must be >= 1, got {plan_cache_size}")
         self.device = resolve_device(device)
+        refusal = getattr(b, "capture_refusal", None)
+        if self.device.type == "cuda" and refusal is not None:
+            raise ValueError(
+                f"backend {backend!r} cannot be captured in a CUDA graph: "
+                f"{refusal}; serve with 'queue_pallas'")
         self.name = name
         self.params, self.thresholds = engine.to_device(params, thresholds,
                                                         self.device)
         self.cfg = cfg
         self.backend = backend
+        self.vmem_resident = vmem_resident
+        self.plan_cache_size = plan_cache_size
+        self._runner = engine.batch_runner(cfg, backend)
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        # bucket B -> plan, insertion-ordered for LRU
+        self._plans: collections.OrderedDict = collections.OrderedDict()
+        # plans built (cache misses in plan_for): the observable the warmup
+        # recompilation guard asserts stays flat
+        self.compile_count = 0
+        # per bucket: the kernel launches its graph records (captures of
+        # this handle), and how often a plan of it has run
+        self.plan_launches: dict[int, dict] = {}
+        self.replay_count: collections.Counter = collections.Counter()
+
+    def _shape(self, bucket: int) -> tuple:
+        cfg = self.cfg
+        return (bucket, cfg.input_hw, cfg.input_hw, cfg.input_c)
+
+    def _evict(self) -> None:
+        while len(self._plans) > self.plan_cache_size:
+            self._plans.popitem(last=False)
+
+    def plan_for(self, bucket: int):
+        """The plan for this bucket size (LRU-cached): on the card a CUDA
+        graph captured at the exact (config, backend, B) shape, on the CPU
+        the eager call. A cache hit is a dict lookup; eviction drops the
+        least recently used plan (and frees its graph)."""
+        if bucket in self._plans:
+            self._plans.move_to_end(bucket)
+            return self._plans[bucket]
+        if self.device.type == "cuda":
+            plan = GraphPlan(self._runner, self.params, self.thresholds,
+                             self._shape(bucket), self.device, self._pool)
+            self.plan_launches[bucket] = plan.launches
+        else:
+            plan = EagerPlan(self._runner, self.params, self.thresholds)
+        self.compile_count += 1
+        self._plans[bucket] = plan
+        self._evict()
+        return plan
+
+    def cached_buckets(self) -> tuple:
+        return tuple(self._plans)
+
+    def adopt_plan(self, bucket: int, plan) -> None:
+        """Install a ready plan for ``bucket`` — ``plan(images, n_valid) ->
+        (logits, stats)`` of the valid prefix, for a (B, H, W, C) float32
+        numpy bucket, as :class:`GraphPlan` and :class:`EagerPlan` are. It enters the same LRU but does **not**
+        bump ``compile_count``: an adopted plan is a cache hit by
+        construction, so the warmup guard keeps working."""
+        self._plans.pop(bucket, None)
+        self._plans[bucket] = plan
+        self._evict()
 
     def run_bucket(self, images, n_valid: int):
-        """Execute one padded (B, H, W, C) bucket; return the valid prefix.
+        """Execute one padded (B, H, W, C) bucket of host images; return the
+        valid prefix (see the engine's mask contract) as tensors that no
+        later bucket overwrites.
 
         Synchronizes the device before returning, so the caller's clock
         read after it covers the bucket's execution.
         """
-        images = torch.as_tensor(np.asarray(images, np.float32),
-                                 device=self.device)
-        logits, stats = engine.infer_batch(
-            self.params, self.thresholds, self.cfg, images,
-            backend=self.backend, device=self.device)
+        images = np.ascontiguousarray(images, np.float32)
+        bucket = images.shape[0]
+        out = self.plan_for(bucket)(images, n_valid)
+        self.replay_count[bucket] += 1
         if self.device.type == "cuda":
+            # audit: allow[host-sync] serve latency metering: the response
+            # timestamp must not be taken before the device is done
             torch.cuda.synchronize(self.device)
-        return engine.slice_valid(logits, stats, n_valid)
+        return out
 
     def warmup(self, buckets=DEFAULT_BUCKETS) -> None:
-        """Execute each bucket once (builds the kernels, picks cuDNN
-        algorithms and warms the allocator) before the first request."""
-        cfg = self.cfg
-        for b in buckets:
-            zeros = np.zeros((b, cfg.input_hw, cfg.input_hw, cfg.input_c),
-                             np.float32)
-            self.run_bucket(zeros, b)
+        """Build (and once-execute) each bucket's plan before the first
+        request: on the card this captures the graphs.
+
+        **Recompilation guard**: after the first pass built every bucket's
+        plan, a second pass over the same bucket sizes must be all cache
+        hits — ``compile_count`` flat — or a plan is not keyed on the bucket
+        size alone and live traffic would recapture.
+        """
+        def one_pass():
+            for b in buckets:
+                self.run_bucket(np.zeros(self._shape(b), np.float32), b)
+
+        one_pass()
+        if len(set(buckets)) > self.plan_cache_size:
+            return  # LRU eviction makes second-pass rebuilds legitimate
+        compiled = self.compile_count
+        one_pass()
+        if self.compile_count != compiled:
+            raise ServeError(
+                f"model {self.name!r}: warmup second pass recompiled "
+                f"({compiled} -> {self.compile_count} compilations for "
+                f"buckets {tuple(buckets)}) — the plan cache is not keying "
+                "on bucket size alone")
 
 
 class ModelRegistry:
     """Name -> :class:`ModelHandle`, LRU-bounded to ``capacity`` models."""
 
-    def __init__(self, capacity: int = 4, *, device=None):
+    def __init__(self, capacity: int = 4, plan_cache_size: int = 8, *,
+                 device=None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if plan_cache_size < 1:
+            raise ValueError(
+                f"plan_cache_size must be >= 1, got {plan_cache_size}")
         self.capacity = capacity
+        self.plan_cache_size = plan_cache_size
         self.device = resolve_device(device)
         self._models: collections.OrderedDict = collections.OrderedDict()
 
     def register(self, name: str, params, thresholds, cfg, *,
-                 backend: str = "queue_pallas") -> ModelHandle:
+                 backend: str = "queue_pallas",
+                 vmem_resident: bool = True) -> ModelHandle:
         """Register artifacts under ``name`` (replaces any old one)."""
         handle = ModelHandle(name, params, thresholds, cfg, backend=backend,
+                             vmem_resident=vmem_resident,
+                             plan_cache_size=self.plan_cache_size,
                              device=self.device)
         self._models.pop(name, None)
         self._models[name] = handle

@@ -1,6 +1,9 @@
 """The serving loop: admission queue -> dynamic batcher -> per-request meters.
 
 Port of ``repro.serve.runtime`` without the mesh and the tracing calls.
+Every clock read goes through ``ServeRuntime.clock`` (wall time by
+default); a load generator on a virtual clock passes its own arrival times
+and batch launch times (``submit(arrival_s=)``, ``step(now=)``).
 Each :meth:`ServeRuntime.step` forms ONE batch: it picks the next model
 (the oldest request of a model other than the one just served, so one
 model's stream cannot starve the rest), gathers up to ``max_bucket`` of its
@@ -29,9 +32,11 @@ class ServeRuntime:
     """Admission queue + dynamic bucketed batcher over registered models."""
 
     def __init__(self, registry: ModelRegistry,
-                 policy: BucketPolicy | None = None):
+                 policy: BucketPolicy | None = None, *,
+                 clock=time.perf_counter):
         self.registry = registry
         self.policy = policy or BucketPolicy()
+        self.clock = clock
         self.queue: collections.deque[InferRequest] = collections.deque()
         self._next_rid = 0
         self._last_model: str | None = None   # batcher rotation (fairness)
@@ -44,10 +49,13 @@ class ServeRuntime:
 
     # -- admission ---------------------------------------------------------
 
-    def submit(self, image, model: str | None = None) -> int:
+    def submit(self, image, model: str | None = None, *,
+               arrival_s: float | None = None) -> int:
         """Admit one (H, W, C) image for ``model``; returns the request id.
 
         ``model`` may be omitted only when exactly one model is registered.
+        ``arrival_s`` overrides the admission timestamp (virtual-clock load
+        generators pass their own time base; default is ``self.clock()``).
         """
         if model is None:
             names = self.registry.names()
@@ -65,10 +73,9 @@ class ServeRuntime:
                 f"got {image.shape}")
         rid = self._next_rid
         self._next_rid += 1
-        # audit: allow[host-sync] admission time, for the queue wait
-        arrival_s = time.perf_counter()
-        self.queue.append(InferRequest(rid=rid, model=model, image=image,
-                                       arrival_s=arrival_s))
+        self.queue.append(InferRequest(
+            rid=rid, model=model, image=image,
+            arrival_s=self.clock() if arrival_s is None else arrival_s))
         self._pending[model] += 1
         return rid
 
@@ -114,11 +121,16 @@ class ServeRuntime:
         self.queue.extendleft(reversed(skipped))
         return taken
 
-    def step(self) -> list[InferResponse]:
-        """Form, execute, and meter one batch; [] when the queue is empty."""
+    def step(self, now: float | None = None) -> list[InferResponse]:
+        """Form, execute, and meter one batch; [] when the queue is empty.
+
+        ``now`` is the batch launch time for queue-wait accounting; leave
+        it None to read ``self.clock()`` (virtual-clock benches pass their
+        simulated time instead).
+        """
         if not self.queue:
             return []
-        t_step0 = time.perf_counter()  # audit: allow[host-sync] step timing
+        t_step0 = self.clock()
         model = self._next_model()
         try:
             handle = self.registry.get(model)
@@ -150,10 +162,10 @@ class ServeRuntime:
         # [t_exec1, t_done) price + response assembly. Their sum IS the
         # step total, so the per-request breakdown accounts for the whole
         # measured latency.
-        # audit: allow[host-sync] step timing (run_bucket synchronizes)
-        t_exec0 = time.perf_counter()
-        logits, stats = handle.run_bucket(padded, len(taken))
-        t_exec1 = time.perf_counter()  # audit: allow[host-sync] step timing
+        t_exec0 = self.clock()
+        launch = t_exec0 if now is None else now
+        logits, stats = handle.run_bucket(padded, len(taken))  # synchronizes
+        t_exec1 = self.clock()
         service_s = t_exec1 - t_exec0
         batch_form_s = t_exec0 - t_step0
         pad_fraction = (bucket - len(taken)) / bucket
@@ -176,7 +188,8 @@ class ServeRuntime:
         batch_record = StatsRecord(events_in=ev, spikes_out=sp, add_ops=ao,
                                    queue_words=qw, overflow=ovf)
         e = price_record(batch_record, input_hw=handle.cfg.input_hw,
-                         compressed=handle.cfg.compressed)
+                         compressed=handle.cfg.compressed,
+                         vmem_resident=handle.vmem_resident)
         energy_j = e.total_j.numpy()
         model_latency_s = e.latency_s.numpy()
 
@@ -192,12 +205,12 @@ class ServeRuntime:
                 energy_j=float(energy_j[i]),
                 model_latency_s=float(model_latency_s[i]),
                 bucket=bucket, batch_valid=len(taken),
-                queue_wait_s=max(0.0, t_exec0 - req.arrival_s),
+                queue_wait_s=max(0.0, launch - req.arrival_s),
                 service_s=service_s, batch_form_s=batch_form_s,
                 pad_fraction=pad_fraction))
         # the price window closes only after responses exist, so these two
         # fields are assigned post-construction (the dataclass is mutable)
-        t_done = time.perf_counter()  # audit: allow[host-sync] step timing
+        t_done = self.clock()
         price_s = t_done - t_exec1
         step_total_s = t_done - t_step0
         for resp in responses:

@@ -635,3 +635,143 @@ def test_dense_on_card_equals_cpu_on_dyadic_net(cuda, backend, input_mode):
     assert torch.equal(lg.cpu(), lc)
     for a, b in zip(sg, sc_):
         assert torch.equal(a.cpu(), b)
+
+
+# --- C3: shapes past the old limits, and the serving graphs -----------------
+
+C3_SHAPES = [  # (hw, c_in, c_out, K, rows, depth): maps past the old
+    # staged-bits limit at every unrolled K, and K = 9, 11 (rolled gather)
+    (128, 4, 40, 3, 2, 16), (512, 3, 32, 3, 2, 64), (512, 2, 16, 1, 1, 64),
+    (512, 2, 16, 5, 1, 64), (512, 2, 16, 7, 1, 64), (32, 3, 40, 9, 3, 16),
+    (32, 3, 40, 11, 3, 16), (20, 2, 8, 13, 2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c_in,c_out,K,rows,depth", C3_SHAPES)
+def test_c3_gather_kernels_match_ordered_oracle(cuda, hw, c_in, c_out, K,
+                                                rows, depth):
+    """B1 and B3 equal the (c, phase)-ordered oracle bit for bit, and B3's
+    int path the quantized oracle, at maps past the old staged-bits limit
+    and at K without an unrolled gather."""
+    fmt, occ, w = _gather_inputs(cuda, hw, c_in, c_out, K, rows, hw + K)
+    kw = dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+    want = ref.fused_spike_accum_ordered_ref(occ, w, **kw)
+    b1 = sp.fused_spike_accum_cuda(occ, w, **kw)
+    b3 = ss.fused_spike_accum_sparse_cuda(occ, w, **kw)
+    q = ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(b1, want) and torch.equal(b3, want)
+    assert torch.equal(q, ref.fused_spike_accum_quant_ref(
+        occ, w, weight_bits=8, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c_in,c_out,K,rows,depth", C3_SHAPES)
+def test_c3_event_accum_kernel_matches_ordered_oracle(cuda, hw, c_in, c_out,
+                                                      K, rows, depth):
+    """B4 at the same shapes, over a step's slice of real queues: its
+    decode's bits equal ``event_bits_plain``, fp32 and bf16 equal the
+    ordered oracle from the membrane bit for bit, and with every live word
+    written twice the ordered oracle on the multiplicities."""
+    rng = np.random.default_rng(hw + K + rows)
+    raster = torch.from_numpy((rng.random((rows, 2, c_in, hw, hw)) < 0.2)
+                              .astype(np.float32)).to(cuda)
+    fmt = make_format(hw, K)
+    q = aeq.aeq_from_raster_batch(fmt, raster, depth)
+    words, counts = q.words[:, 1], q.counts[:, 1]
+    occ = phase_occupancy(fmt, raster[:, 1].permute(0, 2, 3, 1))
+    kw = dict(K=K, n_win=fmt.n_win, bits=fmt.bits_coord)
+    okw = dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+    w = torch.from_numpy(rng.normal(size=(K, K, c_in, c_out))
+                         .astype(np.float32)).to(cuda)
+    vm = torch.from_numpy(rng.normal(size=(rows, hw, hw, c_out))
+                          .astype(np.float32)).to(cuda)
+    bits = torch.empty((rows, c_in, K * K, -(-fmt.n_win ** 2 // 32)),
+                       dtype=torch.int32, device=cuda)
+    got = ea.event_accum_cuda(words, counts, w, vm, bits_out=bits, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, ea.event_bits_plain(
+        words, counts, n_win=fmt.n_win, bits=fmt.bits_coord))
+    assert torch.equal(got, ref.fused_spike_accum_ordered_ref(
+        occ, w, init=vm, **okw))
+    w16, vm16 = w.bfloat16(), vm.bfloat16()
+    assert torch.equal(ea.event_accum_cuda(words, counts, w16, vm16, **kw),
+                       ref.fused_spike_accum_ordered_ref(
+                           occ, w16, init=vm16, **okw))
+    D = words.shape[-1]
+    wr = words[..., torch.arange(D, device=cuda) // 2].contiguous()
+    cr = torch.clamp(counts * 2, max=D).contiguous()
+    mult = ea.event_mult_plain(wr, cr, n_win=fmt.n_win, bits=fmt.bits_coord)
+    assert torch.equal(
+        ea.event_accum_cuda(wr, cr, w, vm, **kw),
+        ref.fused_spike_accum_ordered_ref(
+            mult, w, init=vm, multiplicity=True,
+            **{**okw, "depth": fmt.n_win ** 2}))
+
+
+@pytest.mark.cuda
+def test_c3_sparse_w8_sums_in_int32_past_2_24(cuda):
+    """B3's int path at K = 7, C_in = 2,720 (K*K*C_in*127 > 2^24: the
+    kernel sums int32) equals the quantized oracle bit for bit."""
+    fmt, occ, w = _gather_inputs(cuda, 14, 2720, 32, 7, 2, 5)
+    assert not ss.int_sums_fit_fp32(7, 2720)
+    kw = dict(K=7, n_win=fmt.n_win, depth=4, H=14, W=14)
+    got = ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.fused_spike_accum_quant_ref(
+        occ, w, weight_bits=8, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_win", [(6, 11), (5, 1), (3, 4)])
+def test_c3_spike_compact_past_the_old_depth_limit(cuda, rows, n_win):
+    """B5 at depth 65,536 (rows written in place, past one block's shared
+    memory) equals its plain version: words and uncapped counts."""
+    fmt = make_format(n_win, 1)
+    occ = torch.from_numpy((np.random.default_rng(rows).random(
+        (rows, n_win * n_win)) < 0.5).astype(np.int32)).to(cuda)
+    kw = dict(n_win=n_win, bits=fmt.bits_coord, depth=65_536,
+              invalid=fmt.invalid_word)
+    got = sc.spike_compact_cuda(occ, **kw)
+    want = sc.spike_compact_plain(occ, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,weight_bits", [
+    ("queue_pallas", None), ("queue_pallas", 8), ("dense", None),
+    ("queue", None)])
+def test_graph_replay_equals_eager(cuda, backend, weight_bits):
+    """A served bucket is a captured CUDA graph: its replay equals the
+    eager ``infer_batch`` of the same rows bit for bit (full and partly
+    filled buckets), the capture recorded the wrappers' launches, a second
+    warmup pass captures nothing, and a response stays as it was when a
+    later replay of the same graph runs."""
+    from repro_torch.serve import ModelRegistry
+
+    _, params, th, _ = _dyadic_net("8C3-P2-8C3-P3-10", 12, 2, 3)
+    cfg = engine.SNNConfig(spec="8C3-P2-8C3-P3-10", input_hw=12, input_c=2,
+                           T=3, depth=4, mode="mttfs_cont",
+                           weight_bits=weight_bits)
+    h = ModelRegistry(device=cuda).register("m", params, th, cfg,
+                                            backend=backend)
+    h.warmup((4, 16))
+    assert h.compile_count == 2 and h.cached_buckets() == (4, 16)
+    if backend == "queue_pallas":             # one event-driven stage
+        assert h.plan_launches[4]["fused_spike_accum"] == 1
+        assert h.plan_launches[4]["quant_matmul"] == int(weight_bits == 8)
+    rng = np.random.default_rng(7)
+    imgs = (rng.integers(0, 256, (16, 12, 12, 2)) / 256).astype(np.float32)
+    for b in (4, 16):
+        for n in (b, b // 2 + 1):
+            lr, sr = h.run_bucket(imgs[:b], n)
+            le, se = engine.infer_batch(h.params, h.thresholds, cfg,
+                                        imgs[:n], backend=backend,
+                                        device=cuda)
+            assert torch.equal(lr, le)
+            assert all(torch.equal(a, c) for a, c in zip(sr, se))
+    first, _ = h.run_bucket(imgs[:4], 4)
+    kept = first.clone()
+    h.run_bucket(imgs[4:8], 4)
+    assert torch.equal(first, kept)

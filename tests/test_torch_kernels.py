@@ -196,3 +196,96 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tqm.quant_matmul_cuda(a, a.T.contiguous(), torch.tensor(1.0),
                               torch.tensor(1.0))
+
+
+# --- C3: shapes past the card's old limits ----------------------------------
+
+C3_SHAPES = [  # (hw, c_in, c_out, depth, K): K without an unrolled gather
+    # (the card's rolled one), and a map past the old staged-bits limit
+    (20, 2, 8, 4, 9), (24, 2, 8, 16, 11), (100, 2, 8, 16, 3)]
+
+
+@pytest.mark.parametrize("hw,c_in,c_out,depth,K", C3_SHAPES)
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_c3_plain_versions_match_reference(hw, c_in, c_out, depth, K,
+                                           dyadic):
+    """At K = 9, 11 and at a 100x100 map: plain B1, plain B3 (fp32 and
+    w8) and the (c, phase)-ordered oracle against the JAX oracles — the
+    quantized path exactly, the fp32 ones exactly on dyadic weights and to
+    1e-4 on Gaussian ones (other orders of adds)."""
+    from repro_torch.kernels import spike_sparse as tss
+
+    fmt, occ, w = _occ_weights(hw, c_in, c_out, depth, dyadic, T=2, K=K)
+    kw = _b1_kw(fmt, hw, depth, K)
+    jocc, jw = jnp.asarray(occ), jnp.asarray(w)
+    occ_t, w_t = torch.from_numpy(occ), torch.from_numpy(w)
+    want = np.asarray(jref.fused_spike_accum_ref(jocc, jw, **kw))
+    e_cap = tss.event_bucket(
+        int(tss.kept_event_count(occ_t, depth=depth)),
+        tss.max_kept_events(occ.shape, depth))
+    got = {
+        "b1 plain": tops.fused_spike_accum(occ_t, w_t, bits=fmt.bits_coord,
+                                           **kw),
+        "b3 plain": tops.fused_spike_accum(occ_t, w_t, bits=fmt.bits_coord,
+                                           impl="sparse", e_cap=e_cap, **kw),
+        "ordered": tref.fused_spike_accum_ordered_ref(occ_t, w_t, **kw),
+    }
+    for name, g in got.items():
+        if dyadic:
+            np.testing.assert_array_equal(g.numpy(), want, err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), want, atol=1e-4, rtol=1e-4,
+                                       err_msg=name)
+    q = tops.fused_spike_accum(occ_t, w_t, bits=fmt.bits_coord, impl="sparse",
+                               e_cap=e_cap, weight_bits=8, **kw)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(
+        jref.fused_spike_accum_quant_ref(jocc, jw, weight_bits=8, **kw)))
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 7])
+def test_gather_limit_accepts_512_and_raises_past_what_fits(K):
+    """The unrolled gather stages a block's kept bits by window row, so its
+    shared memory grows with the map's width: a 512x512 map fits at every
+    unrolled K, and the first size that does not raise names its bytes."""
+    def n_win(w):
+        return -(-w // K)
+
+    tsp.check_gather_fits(K, n_win(512), 512, 512)
+    assert tsp.gather_smem(K, n_win(512), 512, 512) <= tsp._SMEM_MAX
+    w = 512
+    while tsp.gather_smem(K, n_win(w), w, w) <= tsp._SMEM_MAX:
+        w += 8
+    with pytest.raises(ValueError, match=str(tsp.gather_smem(
+            K, n_win(w), w, w)) + " bytes"):
+        tsp.check_gather_fits(K, n_win(w), w, w)
+
+
+def test_gather_limit_rolled_k_and_even_k():
+    """Any other odd K runs the rolled gather, which stages nothing; an
+    even K is refused."""
+    for K in (9, 11, 13, 31):
+        tsp.check_gather_fits(K, -(-2048 // K), 2048, 2048)
+    with pytest.raises(ValueError, match="odd K"):
+        tsp.check_gather_fits(4, 8, 32, 32)
+
+
+def test_gather_smem_is_the_old_number_for_small_maps():
+    """Where a block's cells' window rows (plus halo) cover the whole map,
+    the staged words are all NW words of a queue, as before the restaging:
+    every map of the paper's nets (W <= 32 at K = 3) stages at most that."""
+    for w, K in ((32, 3), (10, 3), (3, 3), (28, 3)):
+        nw = -(-(-(-w // K)) ** 2 // 32)
+        cells = (-(-w // K)) ** 2
+        rows = (8 + cells - 2) // cells + 1
+        old = 4 * (2 * 9 * 32 * 32 + 2 * rows * 32 * ((9 * nw) | 1))
+        assert tsp.gather_smem(K, -(-w // K), w, w) <= old
+
+
+def test_b3_int_sums_switch_to_int32_past_2_24():
+    """B3's int path sums in fp32 only while K*K*C_in*127 < 2^24 (every
+    partial sum an exact fp32 integer); past it the kernel sums in int32."""
+    from repro_torch.kernels import spike_sparse as tss
+
+    assert tss.int_sums_fit_fp32(3, 14_678)
+    assert not tss.int_sums_fit_fp32(3, 14_679)
+    assert not tss.int_sums_fit_fp32(7, 2_720)

@@ -311,10 +311,12 @@ def test_backends_registered_and_flagged():
 
 
 def test_serve_refuses_host_dispatch_backend():
-    """Mirrors the reference: serving stays on queue_pallas."""
+    """Mirrors the reference: serving stays on queue_pallas (the
+    reference cannot AOT-lower the plan per bucket, the port cannot capture
+    it)."""
     params, th = dyadic_net(SPEC, HW, C)
     cfg = tengine.SNNConfig(**_cfg(T=2))
     reg = tserve.ModelRegistry(device="cpu")
-    with pytest.raises(ValueError, match="AOT"):
+    with pytest.raises(ValueError, match="cannot be captured per bucket"):
         reg.register("m", params, th, cfg, backend="queue_sparse")
     assert "m" not in reg

@@ -776,3 +776,108 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tmg.moe_gather_cuda(torch.ones((4, 3)),
                             torch.zeros(2, dtype=torch.int32))
+
+
+# --- C3: B4 and B5 at shapes past the card's old limits ---------------------
+
+@pytest.mark.parametrize("hw,K,c_in,c_out,depth", [
+    (20, 9, 2, 8, 6), (24, 11, 2, 8, 16), (100, 3, 2, 8, 16)])
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_c3_event_accum_plain_matches_reference(hw, K, c_in, c_out, depth,
+                                                dyadic):
+    """At K = 9, 11 (the card's rolled gather, a decode of more than 64
+    queues a cell) and a 100x100 map: B4's plain version (through ``ops``)
+    against the JAX oracle, from the same queues (B5's plain version against
+    the JAX AEQ builder); the (c, phase)-ordered oracle from the membrane on
+    the occupancy, and the decode's bits against packed ``segment_keep``."""
+    raster = _raster(2, c_in, hw, seed=hw + K, p_fire=0.3)
+    fj, ft = jenc.make_format(hw, K), tenc.make_format(hw, K)
+    qj = jaeq.aeq_from_raster(fj, jnp.asarray(raster), depth)
+    qt = taeq.aeq_from_raster(ft, torch.from_numpy(raster), depth)
+    for a, b in zip(qt, qj):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    rng = np.random.default_rng(K * hw)
+    if dyadic:
+        w = (rng.integers(-128, 128, (K, K, c_in, c_out)) / 256.0)
+        vm = np.round(rng.normal(size=(hw, hw, c_out)) * 16) / 16
+    else:
+        w = rng.normal(size=(K, K, c_in, c_out))
+        vm = rng.normal(size=(hw, hw, c_out))
+    w, vm = w.astype(np.float32), vm.astype(np.float32)
+    kw = dict(K=K, n_win=fj.n_win, bits=fj.bits_coord)
+    want = np.asarray(jref.event_accum_ref(qj.words[1], qj.counts[1],
+                                           jnp.asarray(w), jnp.asarray(vm),
+                                           **kw))
+    w_t, vm_t = torch.from_numpy(w), torch.from_numpy(vm)
+    got = tops.event_accum(qt.words[1], qt.counts[1], w_t, vm_t, **kw)
+    occ = taeq.phase_occupancy(ft, torch.from_numpy(raster[1:]).permute(
+        0, 2, 3, 1))
+    ordered = tref.fused_spike_accum_ordered_ref(
+        occ, w_t, K=K, n_win=ft.n_win, depth=depth, H=hw, W=hw,
+        init=vm_t[None])[0]
+    for name, g in (("plain", got), ("ordered", ordered)):
+        if dyadic:
+            np.testing.assert_array_equal(g.numpy(), want, err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), want, atol=1e-4,
+                                       rtol=1e-4, err_msg=name)
+    bits = tea.event_bits_plain(qt.words[1:], qt.counts[1:], n_win=ft.n_win,
+                                bits=ft.bits_coord)
+    np.testing.assert_array_equal(
+        bits.numpy(), _packed(taeq.segment_keep(occ, depth).numpy()))
+
+
+@pytest.mark.parametrize("K", [9, 11])
+def test_c3_repeated_words_match_reference(K):
+    """K = 9, 11 on queues that repeat positions: the multiplicities and the
+    ordered oracle on them (B4's order of adds on the card) against the JAX
+    oracle on dyadic weights, where every order gives the same sum. The
+    map fills the window grid (hw = n_win * K), as every map of a net
+    does: these queues name positions anywhere in the grid."""
+    hw, c_in, c_out = {9: 27, 11: 22}[K], 2, 8
+    fmt = tenc.make_format(hw, K)
+    words, counts = repeated_queues(fmt, 2, c_in, 12, K)
+    rng = np.random.default_rng(K)
+    w = (rng.integers(-128, 128, (K, K, c_in, c_out)) / 256.0).astype(
+        np.float32)
+    vm = (np.round(rng.normal(size=(2, hw, hw, c_out)) * 16) / 16).astype(
+        np.float32)
+    kw = dict(K=K, n_win=fmt.n_win, bits=fmt.bits_coord)
+    mult = tea.event_mult_plain(words, counts, n_win=fmt.n_win,
+                                bits=fmt.bits_coord)
+    assert int(mult.max()) >= 2
+    got = tref.fused_spike_accum_ordered_ref(
+        mult, torch.from_numpy(w), K=K, n_win=fmt.n_win,
+        depth=fmt.n_win ** 2, H=hw, W=hw, init=torch.from_numpy(vm),
+        multiplicity=True)
+    for n in range(2):
+        want = jref.event_accum_ref(jnp.asarray(words[n].numpy()),
+                                    jnp.asarray(counts[n].numpy()),
+                                    jnp.asarray(w), jnp.asarray(vm[n]), **kw)
+        np.testing.assert_array_equal(got[n].numpy(), np.asarray(want))
+
+
+def test_c3_spike_compact_plain_past_the_old_depth_limit():
+    """B5's plain version at depth 65,536 (the card once refused depth >
+    58,103) against the JAX oracle: words and uncapped counts."""
+    fmt = jenc.make_format(33, 3)
+    occ = (np.random.default_rng(5).random((3, fmt.n_win ** 2))
+           < 0.5).astype(np.int32)
+    kw = dict(n_win=fmt.n_win, bits=fmt.bits_coord, depth=65_536,
+              invalid=fmt.invalid_word)
+    wj, cj = jref.spike_compact_ref(jnp.asarray(occ), **kw)
+    wt, ct = tops.spike_compact(torch.from_numpy(occ), **kw)
+    np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+
+
+def test_c3_decode_limit_names_its_bytes():
+    """B4's decode holds one (n, c) cell's bits in shared memory: a 512x512
+    map fits at K in {1, 3, 5, 7, 9, 11}; past about 1,360 it raises with
+    its byte count."""
+    for K in (1, 3, 5, 7, 9, 11):
+        tea.check_decode_fits(K, -(-512 // K))
+    n_win = -(-1400 // 3)
+    nbytes = 4 * 9 * -(-n_win * n_win // 32)
+    with pytest.raises(ValueError, match=f"{nbytes} bytes"):
+        tea.check_decode_fits(3, n_win)
