@@ -101,6 +101,21 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    is read within one window; the spread across windows is printed, and
    the port's kernels are counted by name per replay (B1's gather 6, B2 1
    on the w8 handle).
+8. study   — the paper's experiment through the port's study API:
+   ``study.run(StudySpec("cifar10", backend="queue_pallas"))`` with a
+   fresh in-memory ``StudyCache``: the full-width CIFAR-10 net trained
+   (fake-quant AdamW, StudySpec's recipe: 2,048 images x 6 epochs),
+   converted (percentile 99, greedy balancing over ``dense``), collected
+   on 256 eval images in batches of 64 and priced; then a 4-variant
+   pricing sweep (compressed x vmem_resident) on the same cache. Counters
+   are zeroed just before and read just after: one train, one convert, one
+   collect, and B1 6 x 4 = 24 launches. Printed: the report's summary
+   rows, each stage's seconds and the final training loss. The same
+   converted net is collected on ``queue_sparse`` at ``weight_bits=8`` (B3
+   6 and B2 1 per batch, by counters), both reports' overflow printed; and
+   served through ``build_runtime(spec, trained=True)`` (``register_study``
+   on the same cache: no stage re-runs), 64 requests, whose energies must
+   equal a one-shot collect + price bit for bit.
 
 Output: human-readable lines, then a JSON ``{"kernels": [...]}`` line, then
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
@@ -1749,6 +1764,188 @@ def phase_profile(params, ths, cfg, images, kind):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The study pipeline: train -> convert -> collect -> price -> serve
+# ---------------------------------------------------------------------------
+
+STUDY_VARIANTS = [dict(compressed=c, vmem_resident=v)
+                  for c in (True, False) for v in (True, False)]
+STUDY_REQUESTS = 64
+
+
+def phase_study(kind):
+    """The paper's experiment on the card through the port's study API:
+    ``study.run(StudySpec("cifar10", backend="queue_pallas"))`` with a
+    fresh in-memory cache at the full-width CIFAR-10 net and StudySpec's
+    own recipe, then the pricing sweep, the same converted net collected on
+    ``queue_sparse`` at ``weight_bits=8``, and that net served through
+    ``register_study``. Stage seconds come from timers wrapped around the
+    stage functions ``run`` calls (each synchronizes the card first and
+    last); the launch counters are zeroed before each window and read
+    after it."""
+    import numpy as np
+    import torch
+
+    from repro_torch import study
+    from repro_torch.kernels import ops
+    from repro_torch.serve import bench
+    from repro_torch.study import stages
+
+    spec = study.StudySpec(dataset="cifar10", backend="queue_pallas")
+    cache = study.StudyCache()
+    seconds, losses = {}, []
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            if name == "fit_cnn":
+                losses.append(float(out[1]))
+            return out
+        return wrapper
+
+    originals = {n: getattr(stages, n)
+                 for n in ("train", "convert", "collect", "price", "fit_cnn")}
+    for n, fn in originals.items():
+        setattr(stages, n, timed(n, fn))
+    try:
+        study.reset_stage_counts()
+        ops.reset_launch_counts()                  # the study window
+        t0 = time.perf_counter()
+        report = study.run(spec, cache=cache)
+        run_s = time.perf_counter() - t0
+        run_stages = dict(seconds)
+        seconds.clear()
+        t0 = time.perf_counter()
+        reports = study.sweep(spec, STUDY_VARIANTS, cache=cache)
+        sweep_s = time.perf_counter() - t0
+        sweep_stages = dict(seconds)
+        counted = dict(ops.launch_counts)           # read right after
+        counts = dict(study.stage_counts)
+    finally:
+        for n, fn in originals.items():
+            setattr(stages, n, fn)
+
+    batches = -(-spec.n_eval // spec.batch)
+    log(f"[study] run(StudySpec('cifar10', backend='queue_pallas')) on "
+        f"{kind}: {spec.net}, n_train {spec.n_train} x {spec.epochs} epochs "
+        f"(batch {spec.train_batch}), n_eval {spec.n_eval} (batch "
+        f"{spec.batch}), T={spec.T}, depth {spec.depth}: {run_s:.2f} s; "
+        "stages " + ", ".join(f"{n} {v:.2f} s" for n, v in run_stages.items())
+        + f" (fit_cnn inside train); final training loss (last step) "
+        f"{losses[-1]:.4f}")
+    for name, value in report.summary_rows():
+        log(f"[study]   {name:>18s} {value}")
+    log(f"[study] sweep over compressed x vmem_resident ({len(reports)} "
+        f"variants, same cache) {sweep_s:.2f} s (stage calls, cache hits "
+        "included: " + ", ".join(f"{n} {v:.2f} s" for n, v in
+                                 sweep_stages.items())
+        + f"); stage executions in run + sweep {counts}; launches "
+        f"{_nonzero(counted)}")
+    check(counts == {"train": 1, "convert": 1, "collect": 1},
+          f"run + a 4-variant pricing sweep executed stages {counts}, "
+          "expected one train, one convert, one collect")
+    check(counted["fused_spike_accum"] == 6 * batches,
+          f"B1 launched {counted['fused_spike_accum']} times in the study's "
+          f"collect, expected 6 x {batches}")
+    check(sum(counted.values()) == counted["fused_spike_accum"],
+          f"the study window launched another kernel: {counted}")
+    check(report.snn_energy_j.shape == (spec.n_eval,)
+          and np.isfinite(report.snn_energy_j).all()
+          and np.isfinite(report.snn_latency_s).all()
+          and np.isfinite(report.cnn_energy_j) and 0 <= report.snn_acc <= 1,
+          "the study report is not finite or of the eval set's shape")
+    same = reports[0]
+    check(same.spec == spec and same.snn_energy_j.tobytes()
+          == report.snn_energy_j.tobytes() and same.snn_acc == report.snn_acc,
+          "the sweep's (compressed, VMEM) variant differs from run's report")
+    check(all(np.array_equal(r.spikes_per_sample, report.spikes_per_sample)
+              for r in reports),
+          "pricing variants disagree on the recorded spikes")
+
+    # the same converted net on queue_sparse at weight_bits=8 (B3 + B2)
+    trained = study.train(spec, cache=cache)
+    converted = study.convert(spec, trained, cache=cache)
+    eval_images, eval_labels = spec.load_eval()
+    sparse_spec = spec.replace(backend="queue_sparse", weight_bits=8)
+    ops.reset_launch_counts()                      # the queue_sparse window
+    t0 = time.perf_counter()
+    sparse_col = study.collect(sparse_spec, converted, images=eval_images,
+                               cache=cache)
+    sparse_s = time.perf_counter() - t0
+    sparse_counted = dict(ops.launch_counts)
+    sparse_report = study.price(sparse_spec, sparse_col, trained,
+                                eval_labels)
+    log(f"[study] queue_sparse w8 collect of the same converted net: "
+        f"{sparse_s:.2f} s; launches {_nonzero(sparse_counted)}; snn_acc "
+        f"{sparse_report.snn_acc:.4f} (queue_pallas fp32 "
+        f"{report.snn_acc:.4f}), overflow {sparse_report.overflow} "
+        f"(queue_pallas {report.overflow})")
+    check(sparse_counted["fused_spike_accum_sparse"] == 6 * batches
+          and sparse_counted["quant_matmul"] == batches
+          and sparse_counted["fused_spike_accum"] == 0,
+          f"queue_sparse w8 collect launched {sparse_counted}, expected B3 "
+          f"6 x {batches} and B2 {batches}")
+    check(np.isfinite(sparse_col.snn_logits).all(),
+          "queue_sparse w8 logits are not finite")
+
+    # serve the study's net: register_study on the same spec and cache
+    images = bench.request_images("cifar10", STUDY_REQUESTS)
+    study.reset_stage_counts()
+    ops.reset_launch_counts()                      # the serving window
+    t0 = time.perf_counter()
+    runtime, name = bench.build_runtime(spec, BUCKETS, trained=True,
+                                        cache=cache)
+    warm_s = time.perf_counter() - t0
+    handle = runtime.registry.get(name)
+    replays0 = dict(handle.replay_count)
+    res = bench.closed_loop(runtime, name, images)
+    serve_counted = dict(ops.launch_counts)
+    check(dict(study.stage_counts) == {},
+          f"register_study re-ran study stages: {dict(study.stage_counts)}")
+    check(handle.source_key == converted.key,
+          "the served handle is not the study's converted net")
+    replayed = _graph_launches({name: handle}, {name: replays0})
+    parity = bench.verify_energy_parity(runtime, name, images,
+                                        res.responses)
+    one_col = study.collect(spec, converted, images=images,
+                            cache=study.StudyCache())
+    one_shot = study.price_record(one_col.stats, input_hw=spec.input_hw)
+    served = bench.energy_array(res.responses)
+    check(parity["elementwise_bitexact"] and parity["sum_bitexact"]
+          and served.tobytes() == one_shot.total_j.numpy().tobytes(),
+          f"served energies differ from one-shot collect + price: {parity}")
+    check(res.n_requests == STUDY_REQUESTS, f"{res.n_requests} responses")
+    log(f"[study] register_study + build_runtime(spec, trained=True): "
+        f"warmup {warm_s:.2f} s (no stage re-ran), {res.n_requests} requests "
+        f"at {res.throughput_rps:.1f} req/s, buckets {res.bucket_histogram}; "
+        f"captures {_nonzero(serve_counted)}, replayed launches "
+        f"{_nonzero(replayed)}; served energies == one-shot collect + "
+        f"price_record and infer_batch + price_record, bit for bit "
+        f"(sum {float(served.sum()):.6g} J, pricing model)")
+    return dict(
+        spec={f: getattr(spec, f) for f in (
+            "dataset", "net", "n_train", "epochs", "train_batch", "lr",
+            "train_weight_bits", "percentile", "n_balance", "T", "depth",
+            "mode", "input_mode", "n_eval", "batch", "backend")},
+        run_s=run_s, stage_s=run_stages, final_loss=losses[-1],
+        summary_rows=report.summary_rows(), report=report.to_json(),
+        thresholds=[float(t) for t in converted.thresholds],
+        sweep_s=sweep_s, sweep_stage_s=sweep_stages,
+        sweep_rows=study.sweep_rows(reports), stage_counts=counts,
+        launches=_nonzero(counted), batches=batches,
+        sparse=dict(seconds=sparse_s, launches=_nonzero(sparse_counted),
+                    report=sparse_report.to_json()),
+        serve=dict(warmup_s=warm_s, requests=res.n_requests,
+                   requests_per_s=res.throughput_rps,
+                   bucket_histogram=res.bucket_histogram,
+                   captures=_nonzero(serve_counted),
+                   replayed=_nonzero(replayed), energy_parity=parity))
+
+
 def main() -> int:
     import torch
 
@@ -1783,6 +1980,10 @@ def main() -> int:
     b6, b6_launches = phase_moe(device)
     word = phase_word(params, th, cfg, imgs, device, kind)
     profile = phase_profile(params, th, cfg, imgs, kind)
+    t_study = time.perf_counter()
+    study = phase_study(kind)
+    study["phase_s"] = time.perf_counter() - t_study
+    log(f"[study] phase {study['phase_s']:.1f} s")
 
     # per-kernel summary at the serve shapes: one bucket-64 execution,
     # i.e. B1 and B3 over the six event-driven stages at depth 64, B2 at
@@ -1868,7 +2069,7 @@ def main() -> int:
                    b1=b1, b2=b2, b3=b3, c3=c3, b4=b4, b5=b5, b6=b6,
                    serve=serve,
                    mask_contract=mask, sparse=sparse, word=word,
-                   kernels=kernels, profile=profile,
+                   kernels=kernels, profile=profile, study=study,
                    seconds=time.perf_counter() - t_all)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

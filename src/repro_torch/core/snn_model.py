@@ -1,8 +1,12 @@
-"""Parameters of the CNN/SNN shared layer list (port of ``repro.core.snn_model``).
+"""Parameters of the CNN/SNN shared layer list, and the inference wrappers
+(port of ``repro.core.snn_model``).
 
 Params are a list with one dict per spec token: ``{'w', 'b'}`` for conv
 (HWIO weights) and dense layers, ``{}`` for pools — the reference's pytree
-layout, with fp32 tensors in place of jax arrays.
+layout, with fp32 tensors in place of jax arrays. ``params_from_numpy`` /
+``params_to_numpy`` carry them across to and from the reference's numpy
+lists; ``snn_infer`` / ``snn_dense_infer`` (and their batch forms) are the
+engine's ``queue`` and ``dense`` calls.
 """
 from __future__ import annotations
 
@@ -11,7 +15,7 @@ import math
 import torch
 
 from ..device import resolve_device
-from .engine import compile_plan, to_device
+from .engine import compile_plan, infer, infer_batch, to_device
 
 
 def init_params(generator: torch.Generator, spec: str, input_hw: int,
@@ -55,5 +59,40 @@ def params_from_numpy(params_np, thresholds, device=None):
     return to_device(params_np, thresholds, resolve_device(device))
 
 
+def params_to_numpy(params):
+    """The inverse bridge: the port's parameter list -> the reference's
+    list of per-layer dicts of float32 numpy arrays (host copies)."""
+    return [{k: v.detach().cpu().numpy() for k, v in layer.items()}
+            for layer in params]
+
+
 def count_params(params) -> int:
     return sum(int(x.numel()) for p in params for x in p.values())
+
+
+# ---------------------------------------------------------------------------
+# Inference wrappers (one engine, two backends)
+# ---------------------------------------------------------------------------
+
+def snn_infer(params, thresholds, cfg, image, *, device=None):
+    """One (H, W, C) sample through the word-level queue path (the
+    accelerator-faithful AEQ execution); returns ``(logits, SNNStats)``."""
+    return infer(params, thresholds, cfg, image, backend="queue",
+                 device=device)
+
+
+def snn_infer_batch(params, thresholds, cfg, images, *, device=None):
+    return infer_batch(params, thresholds, cfg, images, backend="queue",
+                       device=device)
+
+
+def snn_dense_infer(params, thresholds, cfg, image, *, device=None):
+    """One sample through the dense-dynamics reference path; its stats
+    equal the queue path's whenever no queue overflows."""
+    return infer(params, thresholds, cfg, image, backend="dense",
+                 device=device)
+
+
+def snn_dense_infer_batch(params, thresholds, cfg, images, *, device=None):
+    return infer_batch(params, thresholds, cfg, images, backend="dense",
+                       device=device)

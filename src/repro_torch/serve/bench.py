@@ -19,9 +19,11 @@ one-shot ``engine.infer_batch`` + ``price_record`` over the same inputs
         --backend queue_pallas --mode both [--quick] [--verify] \\
         [--device cpu]
 
-The served model is an *untrained* paper-spec SNN: He-initialized weights
-from seed 0 and unit thresholds (weights do not change serving cost
-structure). On the card every bucket runs as a captured CUDA graph.
+By default the served model is an *untrained* paper-spec SNN:
+He-initialized weights from seed 0 and unit thresholds (weights do not
+change serving cost structure). ``--trained`` serves the study pipeline's
+trained and converted SNN instead (``ModelRegistry.register_study``). On
+the card every bucket runs as a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -31,7 +33,6 @@ import time
 
 import numpy as np
 
-from .. import configs
 from ..core import engine
 from ..study.artifacts import StatsRecord
 from ..study.stages import price_record
@@ -133,37 +134,47 @@ def open_loop(runtime: ServeRuntime, model: str, images, *, rate_rps: float,
 # Model + runtime construction
 # ---------------------------------------------------------------------------
 
-def serve_config(dataset: str = "mnist", *, depth: int = 64, T: int = 4):
-    """The engine config a bench-served model runs: the dataset's paper net
-    (``configs.PAPER_SPECS``) at the reference bench's defaults (the
-    reference's ``serve_spec`` waits for the port's ``StudySpec``)."""
-    net = configs.PAPER_SPECS[dataset]
-    return engine.SNNConfig(spec=net["spec"], input_hw=net["hw"],
-                            input_c=net["c"], T=T, mode="mttfs_cont",
-                            depth=depth)
+def serve_spec(dataset: str = "mnist", *, backend: str = "queue_pallas",
+               depth: int = 64, T: int = 4, batch: int = 64,
+               mode: str = "mttfs_cont"):
+    """The :class:`~repro_torch.study.StudySpec` a bench-served model
+    studies as: the dataset's paper net at the reference bench's
+    defaults."""
+    from ..study import StudySpec
+
+    return StudySpec(dataset=dataset, depth=depth, T=T, batch=batch,
+                     mode=mode, backend=backend)
 
 
-def build_runtime(cfg, buckets=DEFAULT_BUCKETS, *,
-                  backend: str = "queue_pallas", init_seed: int = 0,
-                  warmup: bool = True, device=None,
-                  name: str = "model") -> tuple[ServeRuntime, str]:
-    """Registry + runtime serving ``cfg``'s net; returns (runtime, name).
+def build_runtime(spec, buckets=DEFAULT_BUCKETS, *, trained: bool = False,
+                  cache=None, init_seed: int = 0, warmup: bool = True,
+                  device=None) -> tuple[ServeRuntime, str]:
+    """Registry + runtime serving ``spec``'s model; returns (runtime, name).
 
-    Serves freshly initialized weights (``snn_model.init_params`` from
-    ``init_seed``) with unit thresholds — the serving *cost structure*
-    (shapes, buckets, captured plans) is weight-independent. ``warmup``
+    ``trained=False`` serves freshly initialized weights
+    (``snn_model.init_params`` from ``init_seed``) with unit thresholds —
+    the serving *cost structure* (shapes, buckets, captured plans) is
+    weight-independent; ``trained=True`` trains and converts ``spec``
+    through the study stages (``cache``) and serves that net. ``warmup``
     builds every bucket's plan (on the card: captures its graph) first.
+    ``device`` is the registry's (``None``: the card).
     """
     import torch
 
     from ..core import snn_model
 
     registry = ModelRegistry(device=device)
-    params = snn_model.init_params(torch.Generator().manual_seed(init_seed),
-                                   cfg.spec, cfg.input_hw, cfg.input_c,
-                                   device=registry.device)
-    th = [1.0] * len(engine.parse_spec(cfg.spec))
-    handle = registry.register(name, params, th, cfg, backend=backend)
+    name = f"{spec.dataset}-{spec.backend}"
+    if trained:
+        handle = registry.register_study(name, spec, cache=cache)
+    else:
+        params = snn_model.init_params(
+            torch.Generator().manual_seed(init_seed), spec.net,
+            spec.input_hw, spec.input_c, device=registry.device)
+        th = [1.0] * len(engine.parse_spec(spec.net))
+        handle = registry.register(name, params, th, spec.snn_config(),
+                                   backend=spec.backend,
+                                   vmem_resident=spec.vmem_resident)
     if warmup:
         handle.warmup(buckets)
     return ServeRuntime(registry, BucketPolicy(buckets)), name
@@ -228,11 +239,7 @@ def _check_parity(runtime, name, images, responses) -> None:
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n")[0],
-        epilog="Untrained weights only: serving the study pipeline's trained "
-               "and converted SNN (the reference's --trained) waits for the "
-               "port of the study stages.")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--dataset", default="mnist",
                     choices=("mnist", "svhn", "cifar10"))
@@ -249,6 +256,9 @@ def main(argv=None) -> None:
                          "number because partial load forms smaller buckets)")
     ap.add_argument("--depth", type=int, default=64)
     ap.add_argument("--T", type=int, default=4)
+    ap.add_argument("--trained", action="store_true",
+                    help="serve the study pipeline's trained+converted SNN "
+                         "(slower; default serves untrained weights)")
     ap.add_argument("--verify", action="store_true",
                     help="check per-request energies bit-exactly against "
                          "a one-shot infer_batch+price over the same inputs")
@@ -262,19 +272,23 @@ def main(argv=None) -> None:
 
     n = 32 if args.quick else args.requests
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    cfg = serve_config(args.dataset, depth=args.depth, T=args.T)
+    spec = serve_spec(args.dataset, backend=args.backend, depth=args.depth,
+                      T=args.T)
     images = request_images(args.dataset, n)
-    device = args.device
-    name = f"{args.dataset}-{args.backend}"
+    # one study cache for the CLI's runtimes: --trained trains once
+    from ..study import StudyCache
+
+    cache = StudyCache()
 
     def runtime_for(ladder):
-        return build_runtime(cfg, ladder, backend=args.backend,
-                             device=device, name=name)[0]
+        return build_runtime(spec, ladder, trained=args.trained, cache=cache,
+                             device=args.device)
 
-    runtime = runtime_for(buckets)
+    runtime, name = runtime_for(buckets)
     where = runtime.registry.get(name).device
-    print(f"serving {args.dataset} ({cfg.spec}) on backend={args.backend}, "
-          f"buckets={buckets}, {n} requests, device={where}")
+    print(f"serving {args.dataset} ({spec.net}) on backend={args.backend}, "
+          f"buckets={buckets}, {n} requests, device={where}"
+          f"{', trained' if args.trained else ''}")
 
     closed = None
     if args.mode in ("closed", "both"):
@@ -284,7 +298,7 @@ def main(argv=None) -> None:
             _check_parity(runtime, name, images, closed.responses)
 
         # the per-request baseline: same runtime machinery, bucket ladder (1,)
-        b1 = closed_loop(runtime_for((1,)), name, images)
+        b1 = closed_loop(runtime_for((1,))[0], name, images)
         _print_result("closed B=1", b1)
         print(f"  bucketing speedup: "
               f"{b1.wall_s / closed.wall_s:.2f}x throughput")
@@ -293,7 +307,7 @@ def main(argv=None) -> None:
         rate = args.rate
         if rate <= 0:
             rate = (closed.throughput_rps / 4 if closed is not None else 50.0)
-        rt_open = runtime_for(buckets)
+        rt_open = runtime_for(buckets)[0]
         opened = open_loop(rt_open, name, images, rate_rps=rate)
         _print_result(f"open @{rate:.0f}/s", opened)
         if args.verify and args.mode == "open":

@@ -1,6 +1,5 @@
 """Multi-model registry: named serving handles + a plan per bucket (port of
-``repro.serve.registry``, without the mesh, persistence or study
-registration).
+``repro.serve.registry``, without the mesh or persistence).
 
 A :class:`ModelHandle` owns one servable SNN — params and thresholds on its
 device, the engine config, a backend name, and the pricing options its
@@ -108,6 +107,8 @@ class ModelHandle:
                 f"backend {backend!r} cannot be captured in a CUDA graph: "
                 f"{refusal}; serve with 'queue_pallas'")
         self.name = name
+        # the study stage key the artifacts came from (register_study)
+        self.source_key: str | None = None
         self.params, self.thresholds = engine.to_device(params, thresholds,
                                                         self.device)
         self.cfg = cfg
@@ -238,6 +239,29 @@ class ModelRegistry:
         self._models[name] = handle
         while len(self._models) > self.capacity:
             self._models.popitem(last=False)
+        return handle
+
+    def register_study(self, name: str, spec, *, cache=None,
+                       vmem_resident: bool | None = None) -> ModelHandle:
+        """Train + convert ``spec`` through the study stages on the
+        registry's device, then register the converted net.
+
+        The served model is what ``study.collect`` executes for the same
+        spec (same converted params, thresholds, config and backend), so
+        serving-side energy metering and a study over the same inputs price
+        the same stats. ``handle.source_key`` is the convert stage's key.
+        """
+        from ..study import stages
+
+        trained = stages.train(spec, cache=cache, device=self.device)
+        converted = stages.convert(spec, trained, cache=cache,
+                                   device=self.device)
+        handle = self.register(
+            name, converted.snn_params, converted.thresholds,
+            spec.snn_config(), backend=spec.backend,
+            vmem_resident=(spec.vmem_resident if vmem_resident is None
+                           else vmem_resident))
+        handle.source_key = converted.key
         return handle
 
     def get(self, name: str) -> ModelHandle:

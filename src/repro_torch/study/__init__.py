@@ -1,4 +1,35 @@
-"""Per-request pricing pieces of ``repro.study``: the stats record and
-``price_record``."""
-from .artifacts import StatsRecord  # noqa: F401
-from .stages import price_record  # noqa: F401
+"""The staged, cached Study API — the paper's experiment as a pipeline
+(port of ``repro.study``).
+
+    spec → train → convert → collect → price → report
+
+One :class:`StudySpec` declares a study point; :func:`run` executes the
+chain; :func:`sweep` prices variants against shared recorded stats.
+``core.comparison.run_study`` survives as a deprecation shim over
+:func:`run_with_data`. Not ported yet: direct training (``train_snn``
+raises), ``export_artifact`` / ``load_artifact`` and the grid runner
+``study/sweep.py`` (ROADMAP A6, A7, A8).
+"""
+from ..core.energy import reprice as price_stats  # noqa: F401
+from .artifacts import (CollectArtifact, ConvertArtifact,  # noqa: F401
+                        DirectTrainArtifact, StatsRecord, TrainArtifact)
+from .cache import DEFAULT_CACHE, StudyCache, content_key  # noqa: F401
+from .report import Report, sweep_rows  # noqa: F401
+from .spec import (StudySpec, StudySpecError, UnknownBackendError,  # noqa: F401
+                   UnknownDatasetError, UnknownInputModeError,
+                   UnknownNeuronModeError)
+from .stages import (collect, convert, fit_cnn, from_params,  # noqa: F401
+                     price, price_record, reset_stage_counts, run,
+                     run_with_data, stage_counts, sweep, train, train_snn)
+
+__all__ = [
+    "StudySpec", "StudySpecError", "UnknownDatasetError",
+    "UnknownBackendError", "UnknownNeuronModeError", "UnknownInputModeError",
+    "StudyCache", "DEFAULT_CACHE", "content_key",
+    "TrainArtifact", "ConvertArtifact", "DirectTrainArtifact",
+    "CollectArtifact", "StatsRecord",
+    "Report", "sweep_rows", "price_stats",
+    "train", "train_snn", "convert", "collect", "price", "price_record",
+    "run", "run_with_data", "sweep",
+    "fit_cnn", "from_params", "stage_counts", "reset_stage_counts",
+]

@@ -17,6 +17,7 @@ from repro import serve as jserve
 from repro.core import engine as jengine
 from repro.obs import metrics as jmetrics
 from repro.serve import bench as jbench
+from repro.study import StatsRecord as JStatsRecord
 from repro.study import price_record as jprice_record
 from repro_torch import serve as tserve
 from repro_torch.core import engine as tengine
@@ -279,7 +280,7 @@ def test_vmem_resident_false_prices_as_the_reference():
     streamed = price_record(record, input_hw=HW, vmem_resident=False)
     np.testing.assert_array_equal(
         streamed.total_j.numpy(),
-        np.asarray(jprice_record(record, input_hw=HW,
+        np.asarray(jprice_record(JStatsRecord(*record), input_hw=HW,
                                  vmem_resident=False).total_j))
     np.testing.assert_array_equal(tbench.energy_array(t.responses),
                                   streamed.total_j.numpy())
@@ -290,12 +291,17 @@ def test_vmem_resident_false_prices_as_the_reference():
 
 
 def test_build_runtime_serves_the_paper_net():
-    """build_runtime takes the dataset's net from the port's PAPER_SPECS,
-    untrained weights and unit thresholds, warms every bucket, and its
-    responses price as a one-shot infer_batch + price_record."""
-    cfg = tbench.serve_config("mnist")
-    assert cfg.spec == "32C3-32C3-P3-10C3-10" and cfg.depth == 64
-    rt, name = tbench.build_runtime(cfg, (1, 4), device="cpu")
+    """build_runtime takes the dataset's net from the port's PAPER_SPECS
+    (through ``serve_spec``, the reference's), untrained weights and unit
+    thresholds, warms every bucket, and its responses price as a one-shot
+    infer_batch + price_record."""
+    spec = tbench.serve_spec("mnist")
+    assert spec.net == "32C3-32C3-P3-10C3-10" and spec.depth == 64
+    assert spec.snn_config() == tengine.SNNConfig(
+        spec=spec.net, input_hw=28, input_c=1, T=4, mode="mttfs_cont",
+        depth=64)
+    rt, name = tbench.build_runtime(spec, (1, 4), device="cpu")
+    assert name == "mnist-queue_pallas"
     h = rt.registry.get(name)
     assert h.compile_count == 2 and h.cached_buckets() == (1, 4)
     imgs = tbench.request_images("mnist", 6)

@@ -775,3 +775,116 @@ def test_graph_replay_equals_eager(cuda, backend, weight_bits):
     kept = first.clone()
     h.run_bucket(imgs[4:8], 4)
     assert torch.equal(first, kept)
+
+
+# ---------------------------------------------------------------------------
+# the study pipeline on the card
+# ---------------------------------------------------------------------------
+
+STUDY_KW = dict(dataset="mnist", net="6C3-P2-8", input_hw=28, input_c=1,
+                n_train=256, epochs=2, n_eval=48, eval_seed=99, n_calib=64,
+                T=3, depth=64, mode="mttfs_cont", balance=True, batch=16)
+
+
+def _dyadic_converted(converted):
+    """The converted net rounded as chip_smoke's ``dyadic_params``: weights
+    to multiples of 2^-8, biases 2^-4, the dense layer's max |w| 127 * 2^-8
+    (a power-of-two int8 scale), so no order of adds can flip a spike."""
+    from repro_torch.study import ConvertArtifact
+
+    out = []
+    params = converted.snn_params
+    for i, layer in enumerate(params):
+        if not layer:
+            out.append({})
+            continue
+        w = torch.round(layer["w"].cpu() * 256) / 256
+        if i == len(params) - 1:
+            w = torch.clamp(w, -127 / 256, 127 / 256)
+            w[0, 0] = 127 / 256
+        out.append({"w": w, "b": torch.round(layer["b"].cpu() * 16) / 16})
+    ths = [torch.round(t.cpu() * 16) / 16 for t in converted.thresholds]
+    return ConvertArtifact(out, ths, converted.key + "-dyadic")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,input_mode,convs", [
+    ("6C3-P2-8", "analog", 0), ("6C3-P2-8", "binary", 1),
+    ("6C3-P2-8C3-P2-10", "analog", 1)])
+@pytest.mark.parametrize("backend,weight_bits", [("queue_pallas", 8),
+                                                 ("queue_sparse", 8)])
+def test_study_collect_on_card_equals_cpu(cuda, net, input_mode, convs,
+                                          backend, weight_bits):
+    """The small study's converted net (trained and converted by the port
+    on the CPU) and its eval images, rounded to dyadic values:
+    ``collect`` on the card equals the port's CPU ``collect`` — integer
+    stats equal, logits bit-equal — and launches B1 (``queue_pallas``) or
+    B3 (``queue_sparse``) once per event-driven conv stage per batch, and
+    the int8 head B2 once a batch where the backend executes
+    ``weight_bits`` (``queue_sparse``; on ``queue_pallas`` it prices
+    only)."""
+    from repro_torch import study
+
+    spec = study.StudySpec(**dict(STUDY_KW, net=net, input_mode=input_mode,
+                                  backend=backend, weight_bits=weight_bits))
+    cache = study.StudyCache()
+    converted = _dyadic_converted(study.convert(spec, cache=cache,
+                                                device="cpu"))
+    imgs = np.round(spec.load_eval()[0] * 256) / 256
+    cpu = study.collect(spec, converted, images=imgs, cache=cache,
+                        device="cpu")
+    ops.reset_launch_counts()
+    gpu = study.collect(spec, converted, images=imgs,
+                        cache=study.StudyCache(), device=cuda)
+    batches = -(-spec.n_eval // spec.batch)
+    accum = ("fused_spike_accum" if backend == "queue_pallas"
+             else "fused_spike_accum_sparse")
+    assert ops.launch_counts[accum] == convs * batches
+    assert ops.launch_counts["quant_matmul"] == (
+        batches if backend == "queue_sparse" else 0)
+    assert gpu.snn_logits.tobytes() == cpu.snn_logits.tobytes()
+    np.testing.assert_array_equal(gpu.snn_pred, cpu.snn_pred)
+    for f in study.StatsRecord._fields:
+        np.testing.assert_array_equal(getattr(gpu.stats, f),
+                                      getattr(cpu.stats, f), err_msg=f)
+
+
+@pytest.mark.cuda
+def test_study_run_on_card_keeps_tf32_off_and_prices(cuda):
+    """train / convert / collect / price on the card: TF32 stays off for
+    convs and matmuls (``resolve_device``), the trained net stays on the
+    card, and the report is finite with the eval set's shape."""
+    from repro_torch import study
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    spec = study.StudySpec(**dict(STUDY_KW, backend="queue_pallas"))
+    cache = study.StudyCache()
+    trained = study.train(spec, cache=cache, device=cuda)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert all(v.device.type == "cuda" for p in trained.params
+               for v in p.values())
+    converted = study.convert(spec, trained, cache=cache, device=cuda)
+    assert all(t.device.type == "cuda" for t in converted.thresholds)
+    report = study.run(spec, cache=cache, device=cuda)
+    assert report.snn_energy_j.shape == (spec.n_eval,)
+    assert np.all(np.isfinite(report.snn_energy_j))
+    assert 0.0 <= report.snn_acc <= 1.0 and report.overflow >= 0
+
+
+@pytest.mark.cuda
+def test_train_on_card_is_reproducible(cuda):
+    """One recipe trains one net on the card: two fresh trainings of a
+    two-conv net give bit-equal params (cuDNN's deterministic algorithms
+    inside ``fit_cnn``), and the cuDNN flags are restored after it."""
+    from repro_torch import study
+
+    spec = study.StudySpec(**dict(STUDY_KW, net="6C3-P2-8C3-P2-10"))
+    before = torch.backends.cudnn.deterministic
+    a = study.train(spec, cache=study.StudyCache(), device=cuda)
+    b = study.train(spec, cache=study.StudyCache(), device=cuda)
+    assert torch.backends.cudnn.deterministic == before
+    for la, lb in zip(a.params, b.params):
+        for k in la:
+            assert torch.equal(la[k], lb[k])

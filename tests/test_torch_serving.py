@@ -12,6 +12,7 @@ import torch
 
 from repro import serve as jserve
 from repro.core import engine as jengine
+from repro.study import StatsRecord as JStatsRecord
 from repro.study import price_record as jprice_record
 from repro_torch import serve as tserve
 from repro_torch.core import engine as tengine
@@ -91,7 +92,10 @@ def test_per_request_energy_sums_to_one_shot_pricing():
     served = np.array([r.energy_j for r in resp], np.float32)
     np.testing.assert_array_equal(served, one_shot)
     assert served.sum() == one_shot.sum()
-    ref = np.asarray(jprice_record(record, input_hw=HW).total_j)
+    # the reference's own record type: its reprice rehydrates any record
+    # with an as_snn_stats() (the port's gives torch tensors)
+    ref = np.asarray(jprice_record(JStatsRecord(*record),
+                                   input_hw=HW).total_j)
     np.testing.assert_array_equal(one_shot, ref)
 
 
