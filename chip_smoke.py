@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port of the SNN serving path on one CUDA card.
+"""Drive the PyTorch/H100 port of the SNN serving, study and training paths
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -116,6 +117,28 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    served through ``build_runtime(spec, trained=True)`` (``register_study``
    on the same cache: no stage re-runs), 64 requests, whose energies must
    equal a one-shot collect + price bit for bit.
+9. direct  — direct surrogate-gradient training through the port's study
+   API: ``study.run(StudySpec("cifar10", training="direct",
+   backend="queue_pallas"))`` on the study phase's cache (the CNN ``train``
+   a hit): the same net trained by StudySpec's own recipe (2,048 images x
+   4 epochs, batch 128: 64 AdamW steps through ``engine.train_forward``,
+   superspike beta 10, target ``count``), collected on ``queue_pallas``
+   and priced. Counters are zeroed just before and read just after: stage
+   executions train_snn 1 and collect 1, 64 optimizer steps, B1 6 x 4 = 24
+   launches and no other kernel, overflow 0. Then a second training of the
+   spec on a fresh cache (params bit-equal); a resume on 256 images (2
+   epochs with checkpoints, then to 3) bit-equal to 3 uninterrupted
+   epochs; ``STEP_WINDOWS`` profiled windows of 5 training steps of the
+   trained net at batch 128 (wall, device busy, idle share, top kernels);
+   on dyadic params and images at batch 8, ``train_forward``'s
+   spikes equal ``infer_batch(..., "dense")``'s and its summed step logits
+   those logits to 1e-4, and the loss and every gradient on the card match
+   the port's CPU run (``GRAD_TOL`` of each gradient's norm); an
+   ``export_artifact`` / ``load_artifact`` round trip whose collect stats
+   and logits equal the original's bit for bit; ``encode_rate`` with a
+   CUDA generator (one seed one raster, mean rate within 0.05 of 0.5).
+   Printed: the report's rows, ``train_snn``'s seconds, ms a step, the
+   final loss, and the SNN accuracy beside the converted net's.
 
 Output: human-readable lines, then a JSON ``{"kernels": [...]}`` line, then
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
@@ -123,6 +146,7 @@ go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -1768,12 +1792,42 @@ def phase_profile(params, ths, cfg, images, kind):
 # The study pipeline: train -> convert -> collect -> price -> serve
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def timed_calls(targets, seconds, outputs):
+    """For the block, wrap ``module.name`` for each ``(module, name)`` of
+    ``targets``: each call's seconds (host clock, the card synchronized
+    first and last) add up in ``seconds[name]`` and its result is appended
+    to ``outputs[name]``. The originals come back after the block."""
+    import torch
+
+    originals = [(m, n, getattr(m, n)) for m, n in targets]
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            outputs.setdefault(name, []).append(out)
+            return out
+        return wrapper
+
+    for m, n, fn in originals:
+        setattr(m, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for m, n, fn in originals:
+            setattr(m, n, fn)
+
+
 STUDY_VARIANTS = [dict(compressed=c, vmem_resident=v)
                   for c in (True, False) for v in (True, False)]
 STUDY_REQUESTS = 64
 
 
-def phase_study(kind):
+def phase_study(kind, cache):
     """The paper's experiment on the card through the port's study API:
     ``study.run(StudySpec("cifar10", backend="queue_pallas"))`` with a
     fresh in-memory cache at the full-width CIFAR-10 net and StudySpec's
@@ -1792,26 +1846,10 @@ def phase_study(kind):
     from repro_torch.study import stages
 
     spec = study.StudySpec(dataset="cifar10", backend="queue_pallas")
-    cache = study.StudyCache()
-    seconds, losses = {}, []
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
-            if name == "fit_cnn":
-                losses.append(float(out[1]))
-            return out
-        return wrapper
-
-    originals = {n: getattr(stages, n)
-                 for n in ("train", "convert", "collect", "price", "fit_cnn")}
-    for n, fn in originals.items():
-        setattr(stages, n, timed(n, fn))
-    try:
+    seconds, outputs = {}, {}
+    with timed_calls([(stages, n) for n in ("train", "convert", "collect",
+                                            "price", "fit_cnn")],
+                     seconds, outputs):
         study.reset_stage_counts()
         ops.reset_launch_counts()                  # the study window
         t0 = time.perf_counter()
@@ -1825,9 +1863,7 @@ def phase_study(kind):
         sweep_stages = dict(seconds)
         counted = dict(ops.launch_counts)           # read right after
         counts = dict(study.stage_counts)
-    finally:
-        for n, fn in originals.items():
-            setattr(stages, n, fn)
+    losses = [float(out[1]) for out in outputs["fit_cnn"]]
 
     batches = -(-spec.n_eval // spec.batch)
     log(f"[study] run(StudySpec('cifar10', backend='queue_pallas')) on "
@@ -1932,6 +1968,7 @@ def phase_study(kind):
             "train_weight_bits", "percentile", "n_balance", "T", "depth",
             "mode", "input_mode", "n_eval", "batch", "backend")},
         run_s=run_s, stage_s=run_stages, final_loss=losses[-1],
+        snn_acc=report.snn_acc,
         summary_rows=report.summary_rows(), report=report.to_json(),
         thresholds=[float(t) for t in converted.thresholds],
         sweep_s=sweep_s, sweep_stage_s=sweep_stages,
@@ -1944,6 +1981,271 @@ def phase_study(kind):
                    bucket_histogram=res.bucket_histogram,
                    captures=_nonzero(serve_counted),
                    replayed=_nonzero(replayed), energy_parity=parity))
+
+
+# ---------------------------------------------------------------------------
+# Direct surrogate-gradient training: train_snn -> collect -> price
+# ---------------------------------------------------------------------------
+
+RESUME_IMAGES = 256   # the resume check's training images (2 batches)
+STEP_WINDOWS = 3      # profiled windows of 5 training steps
+GRAD_BATCH = 8        # the card-against-CPU gradient check's batch
+GRAD_TOL = 1e-5       # of each gradient's norm, card against CPU
+
+
+def _params_bytes(params):
+    return [{k: v.detach().cpu().numpy().tobytes() for k, v in p.items()}
+            for p in params]
+
+
+def _loss_and_grads(loss_fn, params, images, labels):
+    """The loss and every parameter's gradient (autograd) on the params'
+    device."""
+    import torch
+
+    leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
+              for p in params]
+    with torch.enable_grad():
+        loss = loss_fn(leaves, images, labels)
+        flat = [v for p in leaves for v in p.values()]
+        grads = torch.autograd.grad(loss, flat)
+    return loss.detach(), [g.detach() for g in grads]
+
+
+def phase_direct(kind, cache, convert_acc):
+    """Direct training of the full-width CIFAR-10 net on the card through
+    the port's study API: ``study.run(StudySpec("cifar10",
+    training="direct", backend="queue_pallas"))`` on the study phase's own
+    cache (the CNN ``train`` a hit), StudySpec's recipe uncut; then a second
+    training of the same spec on a fresh cache (bit-equal params), a
+    checkpoint resume (bit-equal to the uninterrupted run), profiled
+    windows of training steps, the card's gradient against the port's CPU
+    run on dyadic inputs, an export/load round trip whose collect equals
+    the original's bit for bit, and the rate encoder with a CUDA
+    generator."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import study
+    from repro_torch.core import engine, snn_model
+    from repro_torch.core.encoding import encode_rate
+    from repro_torch.kernels import ops
+    from repro_torch.study import stages
+    from repro_torch.training import surrogate
+    from repro_torch.training.optimizer import adamw_init
+
+    spec = study.StudySpec(dataset="cifar10", training="direct",
+                           backend="queue_pallas")
+    seconds, outputs = {}, {}
+    with timed_calls([(stages, n) for n in ("train", "train_snn", "collect",
+                                            "price")]
+                     + [(surrogate, "fit_snn")], seconds, outputs):
+        study.reset_stage_counts()
+        surrogate.reset_step_counts()
+        ops.reset_launch_counts()                  # the direct study window
+        t0 = time.perf_counter()
+        report = study.run(spec, cache=cache)
+        run_s = time.perf_counter() - t0
+        counted = dict(ops.launch_counts)          # read right after
+        counts = dict(study.stage_counts)
+        steps = surrogate.step_counts["steps"]
+    losses = [float(out[2]) for out in outputs["fit_snn"]]
+
+    batches = -(-spec.n_eval // spec.batch)
+    plan = engine.compile_plan(spec.net, spec.input_hw, spec.input_c)
+    event_stages = len(plan.convs) - (spec.input_mode == "analog")
+    want_steps = spec.snn_epochs * -(-spec.n_train // spec.snn_batch)
+    ms_per_step = seconds["fit_snn"] / steps * 1e3
+    log(f"[direct] run(StudySpec('cifar10', training='direct', "
+        f"backend='queue_pallas')) on {kind}: {spec.net}, n_train "
+        f"{spec.n_train} x {spec.snn_epochs} epochs (batch {spec.snn_batch}, "
+        f"lr {spec.snn_lr}, {spec.surrogate} beta {spec.sg_beta}, target "
+        f"{spec.loss_target}), T={spec.T}, {spec.mode}, {spec.input_mode}: "
+        f"{run_s:.2f} s; stages " + ", ".join(
+            f"{n} {v:.3f} s" for n, v in seconds.items())
+        + f" (fit_snn inside train_snn); {steps} steps, {ms_per_step:.2f} ms "
+        f"a step; final loss (last step) {losses[-1]:.4f}")
+    for name, value in report.summary_rows():
+        log(f"[direct]   {name:>18s} {value}")
+    log(f"[direct] SNN accuracy: direct {report.snn_acc:.4f}, converted "
+        f"(study phase) {convert_acc:.4f}; CNN {report.cnn_acc:.4f}; "
+        f"overflow {report.overflow}; stage executions {counts}; launches "
+        f"{_nonzero(counted)}")
+    check(counts == {"train_snn": 1, "collect": 1},
+          f"the direct run executed stages {counts}, expected train_snn 1 "
+          "and collect 1 (the CNN train a cache hit)")
+    check(steps == want_steps, f"{steps} optimizer steps, expected "
+          f"{want_steps}")
+    check(counted["fused_spike_accum"] == event_stages * batches
+          and sum(counted.values()) == counted["fused_spike_accum"],
+          f"the direct window launched {counted}, expected B1 "
+          f"{event_stages} x {batches} and nothing else")
+    check(report.overflow == 0, f"overflow {report.overflow}")
+    check(report.snn_energy_j.shape == (spec.n_eval,)
+          and np.isfinite(report.snn_energy_j).all()
+          and np.isfinite(losses[-1]) and 0 <= report.snn_acc <= 1,
+          "the direct report is not finite or of the eval set's shape")
+
+    # one recipe trains one net
+    art = study.train_snn(spec, cache=cache)
+    t0 = time.perf_counter()
+    again = study.train_snn(spec, cache=study.StudyCache())
+    again_s = time.perf_counter() - t0
+    check(_params_bytes(again.snn_params) == _params_bytes(art.snn_params),
+          "two trainings of one spec on the card gave different params")
+    log(f"[direct] a second train_snn of the spec on a fresh cache "
+        f"({again_s:.2f} s): params bit-equal")
+
+    # a checkpoint resume is bit-exact: 2 epochs, then on to 3
+    images, labels = spec.load_train()
+    images, labels = images[:RESUME_IMAGES], labels[:RESUME_IMAGES]
+    recipe = dict(T=spec.T, mode=spec.mode, input_mode=spec.input_mode,
+                  input_theta=spec.input_theta, v_init_frac=spec.v_init_frac,
+                  batch=spec.snn_batch, lr=spec.snn_lr,
+                  target=spec.loss_target, rate_reg=spec.rate_reg,
+                  surrogate=spec.surrogate, beta=spec.sg_beta,
+                  init_seed=spec.snn_init_seed)
+    full, _, _ = surrogate.fit_snn(spec.net, images, labels, epochs=3,
+                                   **recipe)
+    with tempfile.TemporaryDirectory() as ckpt:
+        surrogate.fit_snn(spec.net, images, labels, epochs=2, ckpt_dir=ckpt,
+                          **recipe)
+        surrogate.reset_step_counts()
+        resumed, _, _ = surrogate.fit_snn(spec.net, images, labels, epochs=3,
+                                          ckpt_dir=ckpt, **recipe)
+        resume_steps = surrogate.step_counts["steps"]
+    check(resume_steps == -(-RESUME_IMAGES // spec.snn_batch),
+          f"the resume ran {resume_steps} steps, expected one epoch")
+    check(_params_bytes(resumed) == _params_bytes(full),
+          "resuming from the epoch-2 checkpoint differs from 3 epochs")
+    log(f"[direct] resume on {RESUME_IMAGES} images: 2 epochs with "
+        f"checkpoints, then to 3 ({resume_steps} steps) == 3 uninterrupted "
+        "epochs, bit for bit")
+
+    # profiled training steps of the trained net at the recipe's batch:
+    # wall, device busy and idle share from the same steps
+    device = torch.device("cuda")
+    cfg = spec.snn_config()
+    step, loss_fn = surrogate.make_snn_train_step(
+        cfg, art.thresholds, target=spec.loss_target, rate_reg=spec.rate_reg,
+        surrogate=spec.surrogate, beta=spec.sg_beta, lr=spec.snn_lr)
+    xb = torch.as_tensor(images[:spec.snn_batch], device=device)
+    yb = torch.as_tensor(labels[:spec.snn_batch], device=device)
+    state = [art.snn_params, adamw_init(art.snn_params)]
+
+    def train_step():
+        state[0], state[1], _ = step(state[0], state[1], xb, yb)
+        torch.cuda.synchronize()
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True      # as fit_snn runs
+    try:
+        step_windows = [profile_window(train_step)
+                        for _ in range(STEP_WINDOWS)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    steps_o = {k: spread([w[k] for w in step_windows]) for k in WINDOW_KEYS}
+    log(f"[direct] training steps (batch {spec.snn_batch}), "
+        f"{STEP_WINDOWS} windows x 5 steps, median (min, max): wall "
+        f"{fmt_spread(steps_o['wall_ms'])} ms, device busy "
+        f"{fmt_spread(steps_o['device_busy_ms'])} ms in "
+        f"{step_windows[-1]['device_ops']} device ops, idle share "
+        f"{fmt_spread(steps_o['idle_share'])} | unprofiled wall "
+        f"{fmt_spread(steps_o['unprofiled_wall_ms'])} ms")
+    for r in step_windows[-1]["top"][:6]:
+        log(f"[direct]   {r['ms']:9.4f} ms  x{r['calls']:<4d} {r['name']}")
+
+    # the card's forward and gradient against the port's CPU run, on
+    # dyadic params and images (exact forward sums), TF32 off
+    gen = torch.Generator().manual_seed(SEED + 7)
+    params = dyadic_params(snn_model.init_params(
+        gen, spec.net, spec.input_hw, spec.input_c, device=device), device)
+    ths = surrogate.unit_thresholds(spec.net, spec.input_hw, spec.input_c,
+                                    device=device)
+    x = torch.round(torch.as_tensor(images[:GRAD_BATCH], device=device)
+                    * 256) / 256
+    y = torch.as_tensor(labels[:GRAD_BATCH], device=device)
+    _, loss_fn = surrogate.make_snn_train_step(
+        cfg, ths, target=spec.loss_target, rate_reg=spec.rate_reg,
+        surrogate=spec.surrogate, beta=spec.sg_beta)
+    step_logits, rates = engine.train_forward(params, ths, cfg, x)
+    logits, stats = engine.infer_batch(params, ths, cfg, x, backend="dense")
+    sizes = torch.tensor([spec.T * cp.out_hw * cp.out_hw * cp.out_c
+                          for cp in plan.convs], device=device)
+    spikes = torch.round(rates.detach() * sizes).to(torch.int32)
+    check(torch.equal(spikes, stats.spikes_out[:, :len(plan.convs)]),
+          "train_forward's spikes differ from infer_batch(dense)'s on the "
+          "card")
+    fwd_err = float((step_logits.detach().sum(1) - logits).abs().max())
+    check(fwd_err <= 1e-4, f"summed step_logits differ from the dense "
+          f"logits by {fwd_err}")
+    loss_gpu, grads_gpu = _loss_and_grads(loss_fn, params, x, y)
+    cpu = [{k: v.cpu() for k, v in p.items()} for p in params]
+    ths_cpu = [t.cpu() for t in ths]
+    _, loss_fn_cpu = surrogate.make_snn_train_step(
+        cfg, ths_cpu, target=spec.loss_target, rate_reg=spec.rate_reg,
+        surrogate=spec.surrogate, beta=spec.sg_beta)
+    _, rates_cpu = engine.train_forward(cpu, ths_cpu, cfg, x.cpu())
+    loss_cpu, grads_cpu = _loss_and_grads(loss_fn_cpu, cpu, x.cpu(), y.cpu())
+    check(torch.equal(rates.detach().cpu(), rates_cpu),
+          "the card's spike rates differ from the CPU's on dyadic inputs")
+    grad_err = max(float((g.cpu() - c).abs().max() / c.norm().clamp_min(1e-30))
+                   for g, c in zip(grads_gpu, grads_cpu))
+    loss_err = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
+    check(grad_err <= GRAD_TOL and loss_err <= 1e-6,
+          f"the card's gradients differ from the CPU's by {grad_err} of "
+          f"their norm (loss {loss_err} relative)")
+    log(f"[direct] dyadic batch {GRAD_BATCH} on the card: train_forward's "
+        "spikes == infer_batch(dense)'s, summed step_logits within "
+        f"{fwd_err:.2e} of its logits; rates == the CPU's; loss "
+        f"{float(loss_gpu):.6f} (CPU {float(loss_cpu):.6f}, {loss_err:.2e} "
+        f"relative), worst gradient {grad_err:.2e} of its norm (bound "
+        f"{GRAD_TOL})")
+
+    # export, load, collect again: the same stats, bit for bit
+    eval_images, _ = spec.load_eval()
+    col = study.collect(spec, art, images=eval_images, cache=cache)
+    with tempfile.TemporaryDirectory() as root:
+        study.export_artifact(art, root)
+        loaded = study.load_artifact(root)
+    check(type(loaded) is study.DirectTrainArtifact and loaded.key == art.key
+          and _params_bytes(loaded.snn_params) == _params_bytes(
+              art.snn_params), "the loaded export differs from the artifact")
+    col2 = study.collect(spec, loaded, images=eval_images,
+                         cache=study.StudyCache())
+    check(all(np.array_equal(getattr(col.stats, f), getattr(col2.stats, f))
+              for f in study.StatsRecord._fields)
+          and col.snn_logits.tobytes() == col2.snn_logits.tobytes(),
+          "the exported net's collect differs from the original's")
+    log("[direct] export_artifact -> load_artifact on the card: params "
+        "bit-equal, collect stats and logits bit-equal")
+
+    # the rate encoder with a CUDA generator
+    half = torch.full((64, spec.input_hw, spec.input_hw, spec.input_c), 0.5,
+                      device=device)
+    r1 = encode_rate(half, 64, torch.Generator(device=device).manual_seed(0))
+    r2 = encode_rate(half, 64, torch.Generator(device=device).manual_seed(0))
+    rate = float(r1.mean())
+    check(torch.equal(r1, r2) and abs(rate - 0.5) < 0.05,
+          f"encode_rate on the card: same seed equal {torch.equal(r1, r2)}, "
+          f"mean rate {rate}")
+    log(f"[direct] encode_rate with a CUDA generator: one seed one raster, "
+        f"mean rate {rate:.4f} at x = 0.5, T = 64")
+    return dict(
+        spec={f: getattr(spec, f) for f in (
+            "dataset", "net", "n_train", "snn_epochs", "snn_batch", "snn_lr",
+            "surrogate", "sg_beta", "loss_target", "rate_reg", "T", "depth",
+            "mode", "input_mode", "n_eval", "batch", "backend")},
+        run_s=run_s, stage_s=seconds, steps=steps, ms_per_step=ms_per_step,
+        final_loss=losses[-1], summary_rows=report.summary_rows(),
+        report=report.to_json(), convert_snn_acc=convert_acc,
+        stage_counts=counts, launches=_nonzero(counted),
+        second_train_s=again_s, resume_steps=resume_steps,
+        step_windows=step_windows, step_spread=steps_o,
+        forward_err=fwd_err, grad_err=grad_err, loss_err=loss_err,
+        encode_rate_mean=rate)
 
 
 def main() -> int:
@@ -1980,10 +2282,17 @@ def main() -> int:
     b6, b6_launches = phase_moe(device)
     word = phase_word(params, th, cfg, imgs, device, kind)
     profile = phase_profile(params, th, cfg, imgs, kind)
+    from repro_torch.study import StudyCache
+
+    cache = StudyCache()       # the study and direct phases share it
     t_study = time.perf_counter()
-    study = phase_study(kind)
+    study = phase_study(kind, cache)
     study["phase_s"] = time.perf_counter() - t_study
     log(f"[study] phase {study['phase_s']:.1f} s")
+    t_direct = time.perf_counter()
+    direct = phase_direct(kind, cache, study["snn_acc"])
+    direct["phase_s"] = time.perf_counter() - t_direct
+    log(f"[direct] phase {direct['phase_s']:.1f} s")
 
     # per-kernel summary at the serve shapes: one bucket-64 execution,
     # i.e. B1 and B3 over the six event-driven stages at depth 64, B2 at
@@ -2070,6 +2379,7 @@ def main() -> int:
                    serve=serve,
                    mask_contract=mask, sparse=sparse, word=word,
                    kernels=kernels, profile=profile, study=study,
+                   direct=direct,
                    seconds=time.perf_counter() - t_all)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

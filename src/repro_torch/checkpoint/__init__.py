@@ -1,0 +1,1 @@
+"""Fault-tolerant checkpoints of tensor trees (port of ``repro.checkpoint``)."""

@@ -2,8 +2,8 @@
 
 Port of ``repro.core.encoding``: the AE word format of Sec. 5.2 (Eq. 6-7,
 including the fallback to the original encoding when no spare code point
-is left) and TTFS input coding. Formats are plain ints; the packing
-helpers work on int32 tensors.
+is left) and the input codings (constant current, TTFS, rate). Formats are
+plain ints; the packing helpers work on int32 tensors.
 """
 from __future__ import annotations
 
@@ -90,6 +90,13 @@ def word_nbytes(fmt: AEFormat) -> int:
     raise ValueError(f"AE word of {fmt.word_bits} bits does not fit int32")
 
 
+def encode_constant_current(image: torch.Tensor, T: int) -> torch.Tensor:
+    """snntoolbox-style analog input: the image is applied as a constant
+    input current at every algorithmic time step. Returns a (T, *shape)
+    view of ``image``."""
+    return image.expand((T,) + tuple(image.shape))
+
+
 def encode_ttfs(image: torch.Tensor, T: int, theta: float = 0.1) -> torch.Tensor:
     """TTFS input coding: brighter pixels spike earlier; one spike per pixel.
 
@@ -103,3 +110,22 @@ def encode_ttfs(image: torch.Tensor, T: int, theta: float = 0.1) -> torch.Tensor
     ts = ts.reshape((T,) + (1,) * image.dim())
     raster = (ts == t_spike) & (x > theta)
     return raster.to(image.dtype)
+
+
+def encode_rate(image: torch.Tensor, T: int,
+                generator: torch.Generator) -> torch.Tensor:
+    """Rate coding: a Bernoulli(x) spike per step for each pixel x (clipped
+    to [0, 1]). Returns a (T, *shape) 0/1 raster in ``image``'s dtype.
+
+    The uniforms come from ``generator`` alone (the reference's explicit
+    key), never from the global RNG; it must live on ``image``'s device.
+    """
+    if generator.device.type != image.device.type:
+        raise ValueError(
+            f"encode_rate: the generator is on {generator.device} but the "
+            f"image on {image.device}; pass a generator on the image's "
+            "device")
+    x = torch.clamp(image, 0.0, 1.0)
+    u = torch.rand((T,) + tuple(image.shape), generator=generator,
+                   dtype=image.dtype, device=image.device)
+    return (u < x).to(image.dtype)

@@ -35,6 +35,11 @@ spike max-pool then run over T in a Python loop (``_conv_step``). The output
 layer accumulates over T, through the int8 ``quant_matmul`` kernel when
 ``cfg.weight_bits`` is set.
 
+:func:`train_forward` is the differentiable walk of the dense plan for
+direct training: the same time loop under a surrogate neuron model
+(straight-through spikes), returning per-step output contributions and
+per-stage spike rates for autograd.
+
 Where the reference uses ``jax.vmap`` the batch axis is written out; where
 it uses ``lax.scan(unroll=True)`` there is a Python loop over T; ``jit`` has
 no counterpart (PyTorch runs eagerly), and the serving registry captures
@@ -60,7 +65,7 @@ from . import encoding
 from .aeq import (aeq_from_raster_batch, kernel_span, phase_occupancy,
                   segment_keep, span_map)
 from .encoding import AEFormat, encode_ttfs
-from .neuron import NeuronModel, get_neuron_model
+from .neuron import NeuronModel, get_neuron_model, surrogate_model
 from .quantization import quantize_symmetric
 from .snn_layers import conv_same_nhwc, event_conv2d, spike_maxpool_hwc
 
@@ -311,7 +316,8 @@ def _conv_step(cp: ConvPlan, model: NeuronModel, vth):
         sp = sp.to(v.dtype)
         if cp.pool:
             sp, p_latch = spike_maxpool_hwc(
-                sp, cp.pool, p_latch, latch_once=model.pool_latch_once)
+                sp, cp.pool, p_latch, latch_once=model.pool_latch_once,
+                straight_through=model.straight_through)
             return (v, latch, p_latch), sp
         return (v, latch), sp
 
@@ -497,10 +503,12 @@ def _event_stats(out, ev, ovf, ops):
                       ovf)
 
 
-def _run_steps(cp: ConvPlan, cfg: SNNConfig, vth, cur):
+def _run_steps(cp: ConvPlan, cfg: SNNConfig, vth, cur, model=None):
     """The time loop: (B, T, H, W, C_out) currents -> (B, T, H', W', C')
-    emitted raster."""
-    step = _conv_step(cp, get_neuron_model(cfg.mode), vth)
+    emitted raster, under ``model`` (default: ``cfg.mode``'s hard fire)."""
+    if model is None:
+        model = get_neuron_model(cfg.mode)
+    step = _conv_step(cp, model, vth)
     carry = _init_carry_batch(cp, cfg, vth, cur.dtype, cur.shape[0])
     frames = []
     for t in range(cfg.T):
@@ -746,6 +754,65 @@ def _execute_batch(plan: LayerPlan, backend, cfg: SNNConfig, params,
         queue_words=torch.stack([r.queue_words for r in rows], dim=1),
     )
     return logits, stats
+
+
+# ---------------------------------------------------------------------------
+# Differentiable plan walk (direct SNN training — training.surrogate)
+# ---------------------------------------------------------------------------
+
+def _execute_diff(plan: LayerPlan, model: NeuronModel, cfg: SNNConfig,
+                  params, thresholds, images):
+    """The batched, grad-capable walk of the dense plan.
+
+    The dynamics of :class:`DenseBackend` (one conv of a stage's B*T
+    frames, the shared time loop) under a surrogate :class:`NeuronModel`,
+    without the integer stats. Returns ``(step_logits (B, T, n_out), rates
+    (B, n_convs))``: the output layer's per-step contribution ``flat @ w +
+    b`` (its sum over T is the inference logits; the ``train`` and
+    ``latency`` targets need the steps), and each conv stage's mean float
+    spike rate, the differentiable event count behind the rate
+    regularizer. The mean is the count times f32(1/n), as the reference's
+    compiled ``jnp.mean`` rounds it.
+    """
+    raster, analog = _encode_input_batch(cfg, images)
+    B = images.shape[0]
+    rates = []
+    for cp in plan.convs:
+        w, b = params[cp.index]["w"], params[cp.index]["b"]
+        if raster is not None:
+            _, T, H, W, C = raster.shape
+            cur = conv_same_nhwc(raster.reshape(B * T, H, W, C), w)
+            cur = cur.reshape(B, T, *cur.shape[1:]) + b
+        else:
+            c1 = conv_same_nhwc(analog, w) + b
+            cur = c1[:, None].expand(B, cfg.T, *c1.shape[1:])
+        raster = _run_steps(cp, cfg, thresholds[cp.index], cur, model)
+        analog = None
+        recip = np.float32(1) / np.float32(raster[0].numel())
+        rates.append(raster.sum((1, 2, 3, 4)) * float(recip))
+    out = params[plan.out.index]
+    step_logits = raster.reshape(B, cfg.T, -1) @ out["w"] + out["b"]
+    return step_logits, torch.stack(rates, dim=1)
+
+
+def train_forward(params, thresholds, cfg: SNNConfig, images, *,
+                  surrogate: str = "superspike", beta: float = 10.0):
+    """Batched differentiable forward through the engine's dense plan.
+
+    Autograd of any scalar built from the outputs flows back through the
+    time loop via the surrogate spike derivative registered for
+    ``cfg.mode`` (``neuron.surrogate_model``); the forward values are the
+    hard dynamics', so the net being trained is the net ``infer_batch``
+    executes. Runs on the params' device (``images`` are moved there; on
+    the card with TF32 off, as ``device.resolve_device`` sets it).
+
+    Returns ``(step_logits (B, T, n_out), rates (B, n_convs))``.
+    """
+    plan = compile_plan(cfg.spec, cfg.input_hw, cfg.input_c, cfg.compressed)
+    model = surrogate_model(cfg.mode, surrogate, beta)
+    device = resolve_device(params[plan.out.index]["w"].device)
+    images = torch.as_tensor(images, dtype=torch.float32, device=device)
+    return _execute_diff(plan, model, cfg, params, tuple(thresholds), images)
 
 
 def to_device(params, thresholds, device):

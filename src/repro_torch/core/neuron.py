@@ -1,11 +1,12 @@
 """Integrate-and-Fire neuron dynamics (paper Eq. 1-2) as a pluggable registry.
 
-Port of the inference half of ``repro.core.neuron``: the fire functions of
-the three built-in modes and the registry the engine dispatches through,
-plus the surrogate-derivative registry (names, primals and exact
-gradients as plain tensor functions) that ``StudySpec`` validates against.
-The straight-through spike built from a surrogate and the differentiable
-fire functions belong to the direct-training slice.
+Port of ``repro.core.neuron``: the fire functions of the three built-in
+modes and the registry the engine dispatches through, the surrogate
+registry (names, primals and exact gradients as plain tensor functions),
+and for direct training (``repro_torch.training.surrogate``) the
+straight-through spike and a differentiable fire builder per mode:
+:func:`surrogate_model` returns a forward-identical :class:`NeuronModel`
+whose float spikes carry the surrogate's gradient through autograd.
 
 - ``if_reset``   : classic IF: reset to 0 after a spike.
 - ``mttfs``      : spike-once latch, no reset (the paper's accelerator model).
@@ -29,11 +30,15 @@ class NeuronModel(NamedTuple):
     integrated and returns ``(new_v, spike_mask, new_latch)``.
     ``pool_latch_once`` tells the fused max-pool whether a pooled output may
     fire only once (spike-once codes) or passes the OR every step.
+    ``straight_through`` marks the surrogate models, whose spikes are
+    float 0/1 values carrying a gradient: the fused max-pool then uses its
+    differentiable form too.
     """
 
     name: str
     fire: FireFn
     pool_latch_once: bool
+    straight_through: bool = False
 
 
 _REGISTRY: dict[str, NeuronModel] = {}
@@ -84,7 +89,7 @@ MODES = tuple(_REGISTRY)
 
 
 # ---------------------------------------------------------------------------
-# Surrogate derivatives (the registry; training through them is not ported)
+# Surrogate derivatives (direct SNN training)
 # ---------------------------------------------------------------------------
 
 class Surrogate(NamedTuple):
@@ -131,12 +136,15 @@ def available_surrogates() -> tuple[str, ...]:
 
 def _triangle_primal(x, beta):
     # piecewise-quadratic hard sigmoid: the antiderivative of the triangle
-    # window, so grad is exactly zero outside |x| >= 1/beta
+    # window, so grad is exactly zero outside |x| >= 1/beta. The clip is
+    # jnp.clip's maximum-then-minimum, not torch.clamp: at a tie (an inner
+    # value that rounds to exactly 1.0) both give half the gradient, where
+    # clamp passes all of it
     bx = beta * x
     inner = 0.5 + bx - torch.sign(x) * 0.5 * bx * bx
-    return torch.clamp(torch.where(torch.abs(bx) >= 1.0,
-                                   (torch.sign(x) + 1.0) * 0.5, inner),
-                       0.0, 1.0)
+    y = torch.where(torch.abs(bx) >= 1.0, (torch.sign(x) + 1.0) * 0.5, inner)
+    return torch.minimum(torch.maximum(y, torch.zeros_like(y)),
+                         torch.ones_like(y))
 
 
 def _triangle_grad(x, beta):
@@ -174,3 +182,90 @@ register_surrogate("superspike", _superspike_primal, _superspike_grad)
 register_surrogate("sigmoid", _sigmoid_primal, _sigmoid_grad)
 
 SURROGATES = tuple(_SURROGATES)
+
+
+def spike_fn(surrogate: str, beta: float) -> Callable:
+    """The straight-through spike ``x -> heaviside(x)`` for one surrogate.
+
+    Forward is bit-exactly ``(x > 0)`` in ``x``'s dtype — ``soft -
+    soft.detach()`` is an exact float zero — so a surrogate model runs the
+    same dynamics as the hard one; autograd differentiates the primal,
+    as ``jax.grad`` does the reference's.
+    """
+    sg = get_surrogate(surrogate)
+
+    def spike(x):
+        soft = sg.primal(x, beta)
+        hard = (x > 0).to(x.dtype)
+        return hard + (soft - soft.detach())
+
+    return spike
+
+
+# mode name -> builder(spike) -> differentiable FireFn. The spikes come out
+# float (exact 0/1 values) instead of bool; the latches stay bool and carry
+# no gradient.
+_SURROGATE_FIRE: dict[str, Callable] = {}
+
+
+def register_surrogate_fire(mode: str, builder: Callable, *,
+                            overwrite: bool = False) -> None:
+    """Register the differentiable fire builder for neuron ``mode``:
+    ``builder(spike)`` returns a :data:`FireFn` forward-identical to the
+    mode's hard fire."""
+    if mode in _SURROGATE_FIRE and not overwrite:
+        raise ValueError(f"surrogate fire for mode {mode!r} already registered")
+    _SURROGATE_FIRE[mode] = builder
+
+
+def surrogate_model(mode: str, surrogate: str = "superspike",
+                    beta: float = 10.0) -> NeuronModel:
+    """A forward-identical, differentiable variant of neuron ``mode``: its
+    spikes, membranes and latches equal the hard model's bit for bit, and
+    autograd sees the surrogate derivative at every fire."""
+    base = get_neuron_model(mode)
+    try:
+        builder = _SURROGATE_FIRE[mode]
+    except KeyError:
+        raise ValueError(
+            f"neuron mode {mode!r} has no surrogate fire registered; "
+            f"modes with one: {sorted(_SURROGATE_FIRE)}") from None
+    return NeuronModel(
+        name=f"{mode}~{surrogate}", fire=builder(spike_fn(surrogate, beta)),
+        pool_latch_once=base.pool_latch_once, straight_through=True)
+
+
+def _sg_fire_if_reset(spike):
+    def fire(v, latch, vth):
+        sp = spike(v - vth)
+        # reset-to-zero as a multiplicative gate: value-identical to
+        # where(crossed, 0, v), and the reset contributes -v * d(sp)/dv to
+        # the membrane gradient
+        v = v * (1.0 - sp)
+        return v, sp, latch | (sp > 0)
+
+    return fire
+
+
+def _sg_fire_mttfs(spike):
+    def fire(v, latch, vth):
+        sp = spike(v - vth)
+        # spike-once gate: the bool latch carries no gradient (the
+        # first-spike selection is treated as constant), the crossing does
+        sp = sp * (1.0 - latch.to(v.dtype))
+        return v, sp, latch | (v > vth)
+
+    return fire
+
+
+def _sg_fire_mttfs_cont(spike):
+    def fire(v, latch, vth):
+        sp = spike(v - vth)
+        return v, sp, latch | (sp > 0)
+
+    return fire
+
+
+register_surrogate_fire("if_reset", _sg_fire_if_reset)
+register_surrogate_fire("mttfs", _sg_fire_mttfs)
+register_surrogate_fire("mttfs_cont", _sg_fire_mttfs_cont)

@@ -66,18 +66,30 @@ def spike_maxpool(spikes: torch.Tensor, window: int, latch: torch.Tensor, *,
 
 
 def spike_maxpool_hwc(spikes: torch.Tensor, window: int, latch: torch.Tensor,
-                      *, latch_once: bool = True):
+                      *, latch_once: bool = True,
+                      straight_through: bool = False):
     """:func:`spike_maxpool` over (..., H, W, C) spikes, channels-last.
 
     The map is cropped to ``Ho * window`` first (32 -> 30 for P3).
     ``latch`` (..., Ho, Wo, C) bool marks pooled outputs that already fired;
     with ``latch_once`` a pooled output fires only the first time any input
     of its window fires. Returns ``(pooled spikes, new latch)``.
+
+    ``straight_through`` keeps the pooled output differentiable for
+    surrogate-gradient training: on exact 0/1 float spikes the windowed max
+    is the OR, and the spike-once gate multiplies by ``1 - latch`` (the
+    latch stays bool, without gradient). The max is ``amax``, whose
+    gradient splits evenly among tied maxima as ``jax.grad`` of the
+    reference's reshaped ``max`` does (``F.max_pool2d`` would give it all
+    to one element; with 0/1 spikes ties are the rule).
     """
     *lead, H, W, C = spikes.shape
     Ho, Wo = H // window, W // window
     s = spikes[..., : Ho * window, : Wo * window, :]
     s = s.reshape(*lead, Ho, window, Wo, window, C).amax(dim=(-4, -2))
+    if straight_through:
+        fired = s * (1.0 - latch.to(s.dtype)) if latch_once else s
+        return fired, latch | (s > 0)
     fired = s > 0
     if latch_once:
         fired = fired & ~latch

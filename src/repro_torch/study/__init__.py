@@ -2,13 +2,14 @@
 (port of ``repro.study``).
 
     spec → train → convert → collect → price → report
+                   (or train_snn, when spec.training="direct")
 
 One :class:`StudySpec` declares a study point; :func:`run` executes the
-chain; :func:`sweep` prices variants against shared recorded stats.
+chain; :func:`sweep` prices variants against shared recorded stats;
+:func:`export_artifact` / :func:`load_artifact` ship a converted or
+directly trained net as a checkpoint directory.
 ``core.comparison.run_study`` survives as a deprecation shim over
-:func:`run_with_data`. Not ported yet: direct training (``train_snn``
-raises), ``export_artifact`` / ``load_artifact`` and the grid runner
-``study/sweep.py`` (ROADMAP A6, A7, A8).
+:func:`run_with_data`. Not ported yet: the grid runner ``study/sweep.py``.
 """
 from ..core.energy import reprice as price_stats  # noqa: F401
 from .artifacts import (CollectArtifact, ConvertArtifact,  # noqa: F401
@@ -18,9 +19,10 @@ from .report import Report, sweep_rows  # noqa: F401
 from .spec import (StudySpec, StudySpecError, UnknownBackendError,  # noqa: F401
                    UnknownDatasetError, UnknownInputModeError,
                    UnknownNeuronModeError)
-from .stages import (collect, convert, fit_cnn, from_params,  # noqa: F401
-                     price, price_record, reset_stage_counts, run,
-                     run_with_data, stage_counts, sweep, train, train_snn)
+from .stages import (collect, convert, export_artifact,  # noqa: F401
+                     fit_cnn, from_params, load_artifact, price,
+                     price_record, reset_stage_counts, run, run_with_data,
+                     stage_counts, sweep, train, train_snn)
 
 __all__ = [
     "StudySpec", "StudySpecError", "UnknownDatasetError",
@@ -30,6 +32,6 @@ __all__ = [
     "CollectArtifact", "StatsRecord",
     "Report", "sweep_rows", "price_stats",
     "train", "train_snn", "convert", "collect", "price", "price_record",
-    "run", "run_with_data", "sweep",
+    "run", "run_with_data", "sweep", "export_artifact", "load_artifact",
     "fit_cnn", "from_params", "stage_counts", "reset_stage_counts",
 ]

@@ -31,10 +31,9 @@ class ConvertArtifact(NamedTuple):
 
 
 class DirectTrainArtifact(NamedTuple):
-    """Output of the reference's ``train_snn`` stage (surrogate-gradient
-    training), field-compatible with :class:`ConvertArtifact`: ``collect``
-    consumes either. The port defines the type; its ``train_snn`` refuses
-    (direct training is not ported)."""
+    """Output of the ``train_snn`` stage (surrogate-gradient training),
+    field-compatible with :class:`ConvertArtifact`: ``collect`` consumes
+    either."""
 
     snn_params: list
     thresholds: list

@@ -48,10 +48,6 @@ import dataclasses
 from dataclasses import dataclass
 
 
-# the loss-target menu of direct training (a copy of
-# ``repro.training.surrogate.VALID_TARGETS``; that trainer is not ported)
-VALID_TARGETS = ["count", "train", "latency"]
-
 
 class StudySpecError(ValueError):
     """A structurally invalid StudySpec (mirrors ``engine.SpecError``)."""
@@ -103,9 +99,9 @@ class StudySpec:
 
     # --- how the SNN's weights come to be --------------------------------
     # "convert": ANN->SNN conversion of the trained CNN (the paper's
-    # pipeline); "direct": surrogate-gradient training through the engine,
-    # which replaces convert with the train_snn stage (not ported: the
-    # port's stages refuse it). The CNN baseline is trained either way.
+    # pipeline); "direct": surrogate-gradient training through the engine
+    # (training.surrogate), which replaces convert with the train_snn
+    # stage. The CNN baseline is trained either way.
     training: str = "convert"
 
     # --- train_snn stage (used only when training="direct") --------------
@@ -114,7 +110,7 @@ class StudySpec:
     snn_lr: float = 5e-3
     surrogate: str = "superspike"     # core/neuron.py surrogate registry
     sg_beta: float = 10.0             # surrogate sharpness
-    loss_target: str = "count"        # VALID_TARGETS
+    loss_target: str = "count"        # training.surrogate.VALID_TARGETS
     rate_reg: float = 0.0             # spike-rate regularizer weight
     snn_init_seed: int = 0
 
@@ -186,6 +182,8 @@ class StudySpec:
             neuron.get_surrogate(self.surrogate)
         except ValueError as e:
             raise StudySpecError(str(e)) from None
+        from ..training.surrogate import VALID_TARGETS
+
         if self.loss_target not in VALID_TARGETS:
             raise StudySpecError(
                 f"unknown loss_target {self.loss_target!r}; valid targets: "

@@ -24,24 +24,36 @@ init_seed)``, so its trained net differs from the reference's for the same
 key; the reference's ``train_*.pkl`` payload (same key, numpy lists) loads
 here unchanged.
 
+- :func:`train_snn` — in place of ``convert`` when ``spec.training ==
+                     "direct"``: surrogate-gradient training through the
+                     engine's dense plan (``training.surrogate.fit_snn``);
+- :func:`export_artifact` / :func:`load_artifact` — a convert or
+                     train_snn artifact as a standalone checkpoint
+                     directory, verified on load.
+
 ``stage_counts`` tallies stage *executions* (cache misses), as there.
-Direct surrogate-gradient training (``train_snn``, ``training="direct"``)
-is not ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import collections
+import json
+import os
+import tempfile
 
 import numpy as np
 import torch
 
+from ..checkpoint.checkpoint import restore as ckpt_restore
+from ..checkpoint.checkpoint import save as ckpt_save
 from ..core import conversion, encoding, engine
 from ..core.cnn_baseline import (cnn_costs, cnn_forward, fraction_f32,
                                  make_train_step)
 from ..core.energy import STATIC_POWER_W, cnn_energy, reprice
 from ..core.snn_model import init_params, params_to_numpy
 from ..device import resolve_device
-from .artifacts import CollectArtifact, ConvertArtifact, StatsRecord, TrainArtifact
+from ..training import surrogate as surrogate_training
+from .artifacts import (CollectArtifact, ConvertArtifact, DirectTrainArtifact,
+                        StatsRecord, TrainArtifact)
 from .cache import DEFAULT_CACHE, content_key
 from .report import Report
 from .spec import StudySpec
@@ -159,23 +171,70 @@ def from_params(params) -> TrainArtifact:
     return TrainArtifact(params, None, None, content_key("params-v1", params))
 
 
-def train_snn(spec: StudySpec, *, cache=None, device=None):
-    """Direct surrogate-gradient training of the SNN (``training="direct"``):
-    not ported (ROADMAP A6). Raises ``NotImplementedError``."""
-    raise NotImplementedError(
-        "direct surrogate-gradient training (train_snn, "
-        "StudySpec.training='direct') is not ported to repro_torch yet: "
-        "ROADMAP A6; use training='convert'")
+def _host_thresholds(thresholds):
+    return [t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t) for t in thresholds]
+
+
+def _save_snn(a):
+    """A convert / train_snn artifact as the reference's numpy payload."""
+    return {"snn_params": params_to_numpy(a.snn_params),
+            "thresholds": _host_thresholds(a.thresholds)}
+
+
+# ---------------------------------------------------------------------------
+# train_snn (direct surrogate-gradient training — the convert alternative)
+# ---------------------------------------------------------------------------
+
+def train_snn(spec: StudySpec, *, cache=None,
+              device=None) -> DirectTrainArtifact:
+    """Train the SNN directly with surrogate gradients (``training="direct"``).
+
+    Sits where ``convert`` sits in the pipeline — its artifact is
+    field-compatible, so ``collect`` / ``price`` consume it unchanged — but
+    the weights come from :func:`~repro_torch.training.surrogate.fit_snn`,
+    autograd through the engine's own dense plan. The key is the
+    reference's: it covers the dynamics fields (T, mode, input encoding),
+    because the net is trained through them. Cached like ``train`` (the
+    same numpy payload, so the two packages' ``train_snn_*.pkl`` files are
+    interchangeable); executions are tallied in ``stage_counts["train_snn"]``
+    and optimizer steps in ``training.surrogate.step_counts``.
+    """
+    cache = cache or DEFAULT_CACHE
+    device = resolve_device(device)
+    images, labels = spec.load_train()
+    key = content_key(
+        "train-snn-v1", spec.dataset, spec.net, spec.input_hw, spec.input_c,
+        spec.T, spec.mode, spec.input_mode, spec.input_theta,
+        spec.v_init_frac, spec.snn_epochs, spec.snn_batch, spec.snn_lr,
+        spec.surrogate, spec.sg_beta, spec.loss_target, spec.rate_reg,
+        spec.snn_init_seed, images, labels)
+
+    def build():
+        stage_counts["train_snn"] += 1
+        params, thresholds, _ = surrogate_training.fit_snn(
+            spec.net, images, labels, T=spec.T, mode=spec.mode,
+            input_mode=spec.input_mode, input_theta=spec.input_theta,
+            v_init_frac=spec.v_init_frac, epochs=spec.snn_epochs,
+            batch=spec.snn_batch, lr=spec.snn_lr, target=spec.loss_target,
+            rate_reg=spec.rate_reg, surrogate=spec.surrogate,
+            beta=spec.sg_beta, init_seed=spec.snn_init_seed, device=device)
+        return DirectTrainArtifact(params, thresholds, key)
+
+    def load(p):
+        return DirectTrainArtifact(_params_on(p["snn_params"], device),
+                                   _thresholds_on(p["thresholds"], device),
+                                   key)
+
+    art = cache.get_or_build("train_snn", key, build, tag=spec.dataset,
+                             save=_save_snn, load=load)
+    return art._replace(snn_params=_params_on(art.snn_params, device),
+                        thresholds=_thresholds_on(art.thresholds, device))
 
 
 # ---------------------------------------------------------------------------
 # convert
 # ---------------------------------------------------------------------------
-
-def _save_snn(a):
-    return {"snn_params": params_to_numpy(a.snn_params),
-            "thresholds": [t.detach().cpu().numpy() for t in a.thresholds]}
-
 
 def convert(spec: StudySpec, trained: TrainArtifact | None = None, *,
             calib_images=None, cache=None, device=None) -> ConvertArtifact:
@@ -232,10 +291,87 @@ def convert(spec: StudySpec, trained: TrainArtifact | None = None, *,
 
 
 # ---------------------------------------------------------------------------
+# export — hand a converted/trained SNN to the serving layer as files
+# ---------------------------------------------------------------------------
+
+_EXPORT_SCHEMA = "snn-export-v1"
+_EXPORT_MANIFEST = "export.json"
+
+
+def export_artifact(artifact: ConvertArtifact | DirectTrainArtifact,
+                    root: str) -> str:
+    """Write a convert/train_snn artifact as a standalone checkpoint.
+
+    Params and thresholds land in a :mod:`repro_torch.checkpoint` directory
+    with per-leaf digests, plus the reference's manifest (``export.json``)
+    pinning the stage's content key, so :func:`load_artifact` can refuse a
+    tampered or mismatched tree; each package loads what the other
+    exported. Returns the manifest path.
+    """
+    thresholds = _host_thresholds(artifact.thresholds)
+    tree = {"snn_params": [dict(p) for p in artifact.snn_params],
+            "thresholds": thresholds}
+    ckpt_save(root, 0, tree)
+    manifest = {
+        "schema": _EXPORT_SCHEMA,
+        "key": artifact.key,
+        "kind": type(artifact).__name__,
+        "content": content_key("snn-export-content", artifact.snn_params,
+                               thresholds),
+        "params_tree": [sorted(p) for p in artifact.snn_params],
+        "n_thresholds": len(artifact.thresholds),
+    }
+    path = os.path.join(root, _EXPORT_MANIFEST)
+    fd, tmp = tempfile.mkstemp(dir=root, suffix=".json.tmp")
+    with os.fdopen(fd, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+    return path
+
+
+def load_artifact(root: str, *,
+                  device=None) -> ConvertArtifact | DirectTrainArtifact:
+    """Restore an :func:`export_artifact` directory onto ``device``,
+    verifying integrity.
+
+    Raises ``FileNotFoundError`` without a manifest, ``IOError`` on a
+    corrupted shard (the checkpoint layer's per-leaf digests), and
+    ``ValueError`` when the restored content no longer hashes to the
+    exported content key (stale or tampered export).
+    """
+    device = resolve_device(device)
+    path = os.path.join(root, _EXPORT_MANIFEST)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no {_EXPORT_MANIFEST} under {root!r} — "
+                                "not an export_artifact directory")
+    with open(path) as f:
+        manifest = json.load(f)
+    if manifest.get("schema") != _EXPORT_SCHEMA:
+        raise ValueError(f"{path}: schema {manifest.get('schema')!r}, "
+                         f"expected {_EXPORT_SCHEMA!r}")
+    template = {"snn_params": [{k: 0 for k in layer}
+                               for layer in manifest["params_tree"]],
+                "thresholds": [0] * manifest["n_thresholds"]}
+    tree, _ = ckpt_restore(root, template)
+    cls = (DirectTrainArtifact if manifest["kind"] == "DirectTrainArtifact"
+           else ConvertArtifact)
+    got = content_key("snn-export-content", tree["snn_params"],
+                      tree["thresholds"])
+    if got != manifest["content"]:
+        raise ValueError(
+            f"{root}: restored params hash to {got} but the manifest pins "
+            f"{manifest['content']} — export is stale or tampered; re-run "
+            "export_artifact")
+    return cls(_params_on(tree["snn_params"], device),
+               _thresholds_on(tree["thresholds"], device), manifest["key"])
+
+
+# ---------------------------------------------------------------------------
 # collect
 # ---------------------------------------------------------------------------
 
-def collect(spec: StudySpec, converted: ConvertArtifact | None = None, *,
+def collect(spec: StudySpec,
+            converted: ConvertArtifact | DirectTrainArtifact | None = None, *,
             images=None, cache=None, device=None) -> CollectArtifact:
     """Run the SNN over the eval set once; record raw per-sample stats.
 
@@ -249,7 +385,7 @@ def collect(spec: StudySpec, converted: ConvertArtifact | None = None, *,
     cache = cache or DEFAULT_CACHE
     device = resolve_device(device)
     if converted is None:
-        converted = (train_snn(spec, cache=cache)
+        converted = (train_snn(spec, cache=cache, device=device)
                      if spec.training == "direct"
                      else convert(spec, cache=cache, device=device))
     if images is None:

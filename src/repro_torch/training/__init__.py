@@ -1,1 +1,2 @@
-"""Training pieces of the port: the AdamW optimizer of the CNN trainer."""
+"""Training pieces of the port: the AdamW optimizer and direct surrogate-
+gradient SNN training (``surrogate``)."""

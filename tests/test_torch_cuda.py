@@ -888,3 +888,110 @@ def test_train_on_card_is_reproducible(cuda):
     for la, lb in zip(a.params, b.params):
         for k in la:
             assert torch.equal(la[k], lb[k])
+
+
+def _digits_batch(n=96):
+    from repro_torch.data.synthetic import make_digits
+
+    imgs, labels = make_digits(n, seed=0)
+    return np.asarray(imgs), np.asarray(labels)
+
+
+SNN_FIT_KW = dict(T=2, batch=48, lr=5e-3, rate_reg=0.01, init_seed=3)
+
+
+@pytest.mark.cuda
+def test_fit_snn_on_card_is_reproducible(cuda):
+    """Direct training on the card: two runs of one recipe give bit-equal
+    params and losses, and the cuDNN flags are restored after each."""
+    from repro_torch.training import surrogate
+
+    imgs, labels = _digits_batch()
+    before = torch.backends.cudnn.deterministic
+    a, _, la = surrogate.fit_snn("4C3-P2-10", imgs, labels, epochs=2,
+                                 **SNN_FIT_KW, device=cuda)
+    b, _, lb = surrogate.fit_snn("4C3-P2-10", imgs, labels, epochs=2,
+                                 **SNN_FIT_KW, device=cuda)
+    assert torch.backends.cudnn.deterministic == before
+    assert a[0]["w"].device.type == "cuda"
+    assert torch.equal(la, lb)
+    for pa, pb in zip(a, b):
+        for k in pa:
+            assert torch.equal(pa[k], pb[k])
+
+
+@pytest.mark.cuda
+def test_fit_snn_resume_on_card_is_bit_exact(cuda, tmp_path):
+    """Kill after epoch 2 of 3 and resume from the checkpoints on the card:
+    bit-equal to the uninterrupted run, the restored tree on the card."""
+    from repro_torch.checkpoint.checkpoint import latest_step
+    from repro_torch.training import surrogate
+
+    imgs, labels = _digits_batch()
+    full, _, _ = surrogate.fit_snn("4C3-P2-10", imgs, labels, epochs=3,
+                                   **SNN_FIT_KW, device=cuda)
+    ck = str(tmp_path / "ck")
+    surrogate.fit_snn("4C3-P2-10", imgs, labels, epochs=2, ckpt_dir=ck,
+                      **SNN_FIT_KW, device=cuda)
+    assert latest_step(ck) == 2
+    resumed, _, _ = surrogate.fit_snn("4C3-P2-10", imgs, labels, epochs=3,
+                                      ckpt_dir=ck, **SNN_FIT_KW, device=cuda)
+    for pa, pb in zip(full, resumed):
+        for k in pa:
+            assert pb[k].device.type == "cuda"
+            assert torch.equal(pa[k], pb[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["if_reset", "mttfs", "mttfs_cont"])
+def test_train_forward_gradient_on_card_matches_cpu(cuda, mode):
+    """Dyadic params and images (exact forward sums): the card's step
+    logits and rates equal the CPU's bit for bit, and its loss and
+    gradients match the CPU's within 1e-5 of each gradient's norm (the
+    backward sums round in another order). TF32 stays off."""
+    from repro_torch.core import snn_model
+    from repro_torch.training import surrogate
+
+    spec, hw = "8C3-P2-16C3-P2-10", 16
+    rng = np.random.default_rng(0)
+    params = snn_model.init_params(torch.Generator().manual_seed(0), spec,
+                                   hw, 1, device="cpu")
+    params = [{k: torch.round(v * 256) / 256 for k, v in p.items()}
+              for p in params]
+    x = torch.from_numpy((rng.integers(0, 256, (6, hw, hw, 1)) / 256.0)
+                         .astype(np.float32))
+    y = torch.arange(6) % 10
+    ths = surrogate.unit_thresholds(spec, hw, 1, device="cpu")
+    cfg = engine.SNNConfig(spec=spec, input_hw=hw, input_c=1, T=4, mode=mode)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = [{k: v.to(dev).requires_grad_(True) for k, v in layer.items()}
+             for layer in params]
+        th = [t.to(dev) for t in ths]
+        sl, rates = engine.train_forward(p, th, cfg, x.to(dev))
+        loss = surrogate.target_loss("train", sl, y.to(dev)) + 0.01 * \
+            rates.mean()
+        grads = torch.autograd.grad(loss, [v for q in p for v in q.values()])
+        out[str(dev)] = (sl.detach().cpu(), rates.detach().cpu(),
+                         loss.detach().cpu(), [g.cpu() for g in grads])
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    (sl_c, r_c, l_c, g_c), (sl_g, r_g, l_g, g_g) = out["cpu"], out["cuda"]
+    assert torch.equal(sl_c, sl_g) and torch.equal(r_c, r_g)
+    assert abs(float(l_c) - float(l_g)) <= 1e-6 * abs(float(l_c))
+    for a, b in zip(g_c, g_g):
+        assert float((a - b).abs().max()) <= 1e-5 * max(float(a.norm()),
+                                                        1e-30)
+
+
+@pytest.mark.cuda
+def test_encode_rate_with_a_cuda_generator(cuda):
+    from repro_torch.core.encoding import encode_rate
+
+    img = torch.full((16, 8, 8, 3), 0.5, device=cuda)
+    r1 = encode_rate(img, 32, torch.Generator(device=cuda).manual_seed(0))
+    r2 = encode_rate(img, 32, torch.Generator(device=cuda).manual_seed(0))
+    assert r1.device.type == "cuda" and torch.equal(r1, r2)
+    assert abs(float(r1.mean()) - 0.5) < 0.05
+    with pytest.raises(ValueError, match="image's device"):
+        encode_rate(img, 4, torch.Generator().manual_seed(0))

@@ -289,16 +289,28 @@ def test_convert_requires_calib_for_caller_params(ref_disk):
 
 
 # ---------------------------------------------------------------------------
-# direct training is refused, by name
+# direct training through collect and run
 # ---------------------------------------------------------------------------
 
 def test_direct_training_raises_not_implemented_naming_a6():
-    spec = T_SMALL.replace(training="direct")
-    for call in (lambda: tstudy.train_snn(spec),
-                 lambda: tstudy.run(spec, device="cpu"),
-                 lambda: tstudy.collect(spec, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            call()
+    """``training="direct"`` runs: ``collect`` trains the SNN on the device
+    it is given (the CPU here, with no card) through ``train_snn``, once
+    per cache, and ``run`` then trains the CNN baseline, reuses the trained
+    SNN and its collect, and prices them."""
+    spec = T_SMALL.replace(training="direct", n_train=64, snn_epochs=1,
+                           snn_batch=32)
+    tstudy.reset_stage_counts()
+    cache = tstudy.StudyCache()
+    col = tstudy.collect(spec, cache=cache, device="cpu")
+    assert dict(tstudy.stage_counts) == {"train_snn": 1, "collect": 1}
+    snn = tstudy.train_snn(spec, cache=cache, device="cpu")
+    assert snn.snn_params[0]["w"].device.type == "cpu"
+    report = tstudy.run(spec, cache=cache, device="cpu")
+    assert dict(tstudy.stage_counts) == {"train_snn": 1, "collect": 1,
+                                         "train": 1}
+    assert report.snn_energy_j.shape == (spec.n_eval,)
+    np.testing.assert_array_equal(
+        report.spikes_per_sample, col.stats.spikes_out.sum(-1, dtype=np.int32))
 
 
 # ---------------------------------------------------------------------------
