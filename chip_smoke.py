@@ -10,7 +10,10 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
 2. build   — compiles every kernel under ``src/repro_torch/csrc`` with nvcc
-   (one process per source, in parallel) into the git-ignored build dir.
+   (one process per source, in parallel) into the kernel compile cache
+   (``core.compile_cache``), here ``chiprun_out/fleet/kernels``: the
+   directory the fleet phase's replicas share; the cache's hit / miss /
+   put counts are printed.
 3. kernels — at the CIFAR-10 serve shapes (bucket 64, T=4): the fused spike
    kernel (B1) on every conv stage's real occupancy, at depth 64 and 256,
    with the net's Gaussian weights held bit-exactly against the (c,
@@ -140,6 +143,29 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    Printed: the report's rows, ``train_snn``'s seconds, ms a step, the
    final loss, and the SNN accuracy beside the converted net's.
 
+10. obs    — the full-width net's fp32 handle served by the closed loop
+   (256 requests) ``OBS_RUNS`` times with tracing off and as often with it
+   on (``repro_torch.obs``), in turns: every response (logits, stats,
+   float32 energy) bit-identical across all runs; each traced run's trace
+   holds ``serve.execute`` and ``serve.price`` spans, one ``serve.request``
+   event a request and ``serve.requests`` equal to the count;
+   ``python -m repro_torch.obs summarize`` renders the last one. Printed:
+   traced and untraced req/s, median (min–max).
+11. fleet  — a registry of the fp32 ``queue_pallas`` handle and its
+   ``weight_bits=8`` twin at buckets (1, 4, 16, 64), saved
+   (``save_registry``) under ``chiprun_out/fleet/registry``, restored
+   in-process (``load_registry``: every bucket's graph re-captured,
+   ``compile_count`` 0) and each bucket's replay, full and partly filled,
+   held bit-equal to the builder's; then ``python -m
+   repro_torch.serve.fleet --replicas 2 --dataset cifar10 --buckets
+   1,4,16,64 --cache-dir chiprun_out/fleet``: each replica must report
+   zero compile-cache misses (the build phase paid them) and
+   ``compile_count`` 0, the two must answer bit-identically, and equal the
+   in-process restored registry on the same requests. Printed: each
+   replica's ``first_response_s``, ``restore_s`` and ``warmup_s``, and the
+   B1 and B2 launches of the phase's window (captures and replays,
+   in-process and per replica).
+
 Output: human-readable lines, then a JSON ``{"kernels": [...]}`` line, then
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``.
@@ -149,7 +175,9 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -164,7 +192,9 @@ BUCKETS = (1, 4, 16, 64)
 N_REQUESTS = 256      # the reference serve bench's default --requests
 SERVE_RUNS = 5        # closed-loop runs per handle
 PROFILE_WINDOWS = 5   # profiled windows per handle, 5 bucket calls each
+OBS_RUNS = 4          # closed-loop runs each, tracing off and on, in turns
 SEED = 0
+FLEET_DIR = ROOT / "chiprun_out" / "fleet"   # the fleet's --cache-dir
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -351,15 +381,20 @@ def phase_device():
 
 
 def phase_build():
+    from repro_torch.core import compile_cache
     from repro_torch.kernels import _cuda
 
+    compile_cache.configure(str(FLEET_DIR / "kernels"))
     t0 = time.perf_counter()
     paths = _cuda.build_all()
+    cache = compile_cache.stats()
     log(f"[build] {len(paths)} sources in {time.perf_counter() - t0:.1f} s "
-        "(one nvcc each, in parallel)")
-    out = {}
+        f"(one nvcc each, in parallel) into the compile cache {cache['dir']}:"
+        f" {cache['misses']} misses, {cache['puts']} puts, {cache['hits']} "
+        f"hits, {cache['entries']} libraries of {cache['bytes']} bytes")
+    out = {"compile_cache": cache}
     for name in paths:
-        build_log = _cuda.BUILD / f"{name}.log"
+        build_log = _cuda.build_dir() / f"{name}.log"
         text = build_log.read_text() if build_log.exists() else ""
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = [int(a) + int(b) for a, b in re.findall(
@@ -2248,6 +2283,209 @@ def phase_direct(kind, cache, convert_acc):
         encode_rate_mean=rate)
 
 
+# ---------------------------------------------------------------------------
+# Observability and the replica fleet
+# ---------------------------------------------------------------------------
+
+def _responses_equal(a, b):
+    """Two closed-loop results (rid order) answer alike: logits, the five
+    stats rows and float32 energies, request by request."""
+    import numpy as np
+
+    return len(a) == len(b) and all(np.array_equal(x.logits, y.logits)
+               and np.float32(x.energy_j) == np.float32(y.energy_j)
+               and all(np.array_equal(p, q) for p, q in zip(x.stats, y.stats))
+               for x, y in zip(a, b))
+
+
+def phase_obs(params, device, kind):
+    """The closed loop with tracing off and on, in turns: responses
+    bit-identical, the trace complete, the summarizer renders it."""
+    from repro_torch import obs
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import make_cifar_like
+    from repro_torch.obs.summarize import summarize
+    from repro_torch.serve import BucketPolicy, ModelRegistry, ServeRuntime
+    from repro_torch.serve import bench
+
+    th = [1.0] * len(params)
+    cfg = engine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C_IN, T=T,
+                           mode=MODE, depth=DEPTH)
+    images, _ = make_cifar_like(N_REQUESTS, seed=SEED + 7)
+    registry = ModelRegistry(device=device)
+    registry.register("cifar10-fp32", params, th, cfg).warmup(BUCKETS)
+    runtime = ServeRuntime(registry, BucketPolicy(BUCKETS))
+    trace_path = ROOT / "chiprun_out" / "obs_trace.jsonl"
+    rates = {False: [], True: []}
+    first = None
+    for i in range(OBS_RUNS):
+        for traced in ((False, True) if i % 2 == 0 else (True, False)):
+            obs.reset()
+            if traced:
+                obs.enable()
+            batches0 = runtime.n_batches
+            res = bench.closed_loop(runtime, "cifar10-fp32", images)
+            obs.disable()
+            rates[traced].append(res.throughput_rps)
+            first = first or res.responses
+            check(res.n_requests == N_REQUESTS
+                  and _responses_equal(first, res.responses),
+                  f"[obs] a {'traced' if traced else 'untraced'} run "
+                  "answered differently from the first run")
+            if not traced:
+                continue
+            spans = obs.spans()
+            executes = [x for x in spans if x.name == "serve.execute"]
+            requests = [e for e in obs.events() if e.name == "serve.request"]
+            counters = obs.metrics_snapshot()["counters"]
+            batches = runtime.n_batches - batches0
+            check(len(executes) == batches == counters.get("serve.batches")
+                  and any(x.name == "serve.price" for x in spans)
+                  and len(requests) == N_REQUESTS
+                  and counters.get("serve.requests") == N_REQUESTS,
+                  f"[obs] the trace is incomplete: {len(executes)} "
+                  f"serve.execute spans for {batches} batches, "
+                  f"{len(requests)} serve.request events, counters "
+                  f"{counters}")
+            obs.save_jsonl(str(trace_path))
+            n_spans, n_events = len(spans), len(obs.events())
+    report = summarize(str(trace_path), limit=4)
+    check("serve.execute" in report and "batch-form" in report,
+          "[obs] the summarizer did not render the trace")
+    out = dict(traced_rps=spread(rates[True]),
+               untraced_rps=spread(rates[False]),
+               runs=OBS_RUNS, trace=str(trace_path.relative_to(ROOT)),
+               spans=n_spans, events=n_events)
+    log(f"[obs] {kind}: closed loop, {N_REQUESTS} requests, {OBS_RUNS} runs "
+        "each in turns: untraced req/s "
+        f"{fmt_spread(out['untraced_rps'], '{:.1f}')}, traced req/s "
+        f"{fmt_spread(out['traced_rps'], '{:.1f}')}; responses bit-identical "
+        f"in all {2 * OBS_RUNS} runs; last trace {out['spans']} spans, "
+        f"{out['events']} events (serve.request 1 a request), summarized")
+    for line in report.splitlines():
+        if line.startswith("| serve."):
+            log(f"[obs]   {line}")
+    obs.reset()
+    return out
+
+
+def phase_fleet(params, device, kind):
+    """Save a two-handle registry, restore it in-process (replays equal
+    the builder's), then serve it from two replica processes that share
+    the build phase's kernel libraries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import make_cifar_like
+    from repro_torch.kernels import _cuda, ops
+    from repro_torch.serve import (ModelRegistry, fleet, load_registry,
+                                   save_registry)
+    from repro_torch.serve.bench import request_images
+
+    th = [1.0] * len(params)
+    cfg = engine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C_IN, T=T,
+                           mode=MODE, depth=DEPTH)
+    ck_dir = FLEET_DIR / "registry"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    ops.reset_launch_counts()                      # the phase's window
+    builder = ModelRegistry(device=device)
+    for name, bits in (("cifar10-fp32", None), ("cifar10-w8", 8)):
+        builder.register(name, params, th, cfg._replace(weight_bits=bits))
+        builder.get(name).warmup(BUCKETS)
+    t0 = time.perf_counter()
+    save_registry(builder, str(ck_dir))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = load_registry(str(ck_dir), device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    imgs, _ = make_cifar_like(max(BUCKETS), seed=SEED + 13)
+    cases = 0
+    for name in builder.names():
+        h, b_h = restored.get(name), builder.get(name)
+        check(h.cached_buckets() == BUCKETS and h.compile_count == 0,
+              f"[fleet] {name}: restored buckets {h.cached_buckets()}, "
+              f"compile_count {h.compile_count}")
+        for b in BUCKETS:
+            for n in sorted({b, b // 2 + 1}):
+                lr, sr = h.run_bucket(imgs[:b], n)
+                lb, sb = b_h.run_bucket(imgs[:b], n)
+                check(torch.equal(lr, lb) and _stats_equal(sr, sb),
+                      f"[fleet] {name} bucket {b}, {n} valid: the restored "
+                      "replay differs from the builder's")
+                cases += 1
+        h.warmup(BUCKETS)
+        check(h.compile_count == 0, f"[fleet] {name}: warmup recaptured")
+    requests = request_images("cifar10", 16, seed=2026)   # the fleet's own
+    inproc, _ = fleet.serve_requests(restored, requests, BUCKETS)
+    counted = dict(ops.launch_counts)
+    replayed = fleet.replayed_launches(builder)
+    for k, v in fleet.replayed_launches(restored).items():
+        replayed[k] = replayed.get(k, 0) + v
+    log(f"[fleet] saved {len(builder)} handles x buckets {BUCKETS} in "
+        f"{save_s:.3f} s; load_registry (params + {len(BUCKETS)} captures "
+        f"a handle) {load_s:.3f} s; restored replay == builder's replay in "
+        f"{cases} (handle, bucket, valid rows) cases, compile_count 0")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.serve.fleet", "--replicas",
+           "2", "--dataset", "cifar10", "--buckets",
+           ",".join(map(str, BUCKETS)), "--cache-dir", str(FLEET_DIR),
+           "--timeout", "600"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=700)
+    fleet_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[fleet] the fleet exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    replicas = json.loads(proc.stdout.strip().splitlines()[-1])["replicas"]
+    check(len(replicas) == 2, f"[fleet] {len(replicas)} replica reports")
+    want_preds = [int(r.pred) for r in inproc]
+    want_e = [float(np.float32(r.energy_j)) for r in inproc]
+    for r in replicas:
+        c = r["compile_cache"]
+        check(c["misses"] == 0 and c["hits"] == len(_cuda.SOURCES)
+              and c["dir"] == str(FLEET_DIR / "kernels"),
+              f"[fleet] replica {r['replica']} compile cache {c}")
+        check(r["compile_count"] == 0,
+              f"[fleet] replica {r['replica']} compiled {r['compile_count']}"
+              " plans")
+        check(r["preds"] == want_preds and r["energies"] == want_e,
+              f"[fleet] replica {r['replica']} differs from the in-process "
+              "restored registry on the same requests")
+        check(r["replayed"].get("fused_spike_accum", 0) > 0
+              and r["replayed"].get("quant_matmul", 0) > 0,
+              f"[fleet] replica {r['replica']} replayed {r['replayed']}")
+        log(f"[fleet]   replica {r['replica']} on {r['device']}: "
+            f"first_response_s {r['first_response_s']:.3f} (from spawn), "
+            f"restore_s {r['restore_s']:.3f}, warmup_s "
+            f"{r['warmup_s']:.3f}, total_s {r['total_s']:.3f}; compile "
+            f"cache {c['hits']} hits / {c['misses']} misses; compile_count "
+            f"{r['compile_count']}; launches (captures) "
+            f"{_nonzero(r['launches'])}, replayed {_nonzero(r['replayed'])}")
+    check(counted["fused_spike_accum"] > 0 and counted["quant_matmul"] > 0
+          and replayed.get("fused_spike_accum", 0) > 0
+          and replayed.get("quant_matmul", 0) > 0,
+          f"[fleet] B1 or B2 never launched in-process: {counted}, "
+          f"replayed {replayed}")
+    log(f"[fleet] {kind}: 2 replicas, {replicas[0]['n']} requests each over "
+        f"{len(replicas[0]['models'])} handles, bit-identical to each other "
+        f"and to the in-process restored registry; fleet command {fleet_s:.1f}"
+        f" s. Window launches in-process: wrapper (eager runs and captures)"
+        f" B1 {counted['fused_spike_accum']}, B2 {counted['quant_matmul']};"
+        f" replayed B1 {replayed.get('fused_spike_accum', 0)}, B2 "
+        f"{replayed.get('quant_matmul', 0)}")
+    size = sum(f.stat().st_size for f in FLEET_DIR.rglob("*") if f.is_file())
+    return dict(save_s=save_s, load_s=load_s, replay_cases=cases,
+                fleet_s=fleet_s, launches=counted, replayed=replayed,
+                cache_dir_bytes=size,
+                replicas=[{k: v for k, v in r.items()
+                           if k not in ("preds", "energies")}
+                          for r in replicas])
+
+
 def main() -> int:
     import torch
 
@@ -2293,6 +2531,15 @@ def main() -> int:
     direct = phase_direct(kind, cache, study["snn_acc"])
     direct["phase_s"] = time.perf_counter() - t_direct
     log(f"[direct] phase {direct['phase_s']:.1f} s")
+    t_obs = time.perf_counter()
+    traced = phase_obs(params, device, kind)
+    traced["phase_s"] = time.perf_counter() - t_obs
+    log(f"[obs] phase {traced['phase_s']:.1f} s")
+    t_fleet = time.perf_counter()
+    replicas = phase_fleet(params, device, kind)
+    replicas["phase_s"] = time.perf_counter() - t_fleet
+    log(f"[fleet] phase {replicas['phase_s']:.1f} s; the cache dir holds "
+        f"{replicas['cache_dir_bytes']} bytes")
 
     # per-kernel summary at the serve shapes: one bucket-64 execution,
     # i.e. B1 and B3 over the six event-driven stages at depth 64, B2 at
@@ -2379,7 +2626,7 @@ def main() -> int:
                    serve=serve,
                    mask_contract=mask, sparse=sparse, word=word,
                    kernels=kernels, profile=profile, study=study,
-                   direct=direct,
+                   direct=direct, obs=traced, fleet=replicas,
                    seconds=time.perf_counter() - t_all)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

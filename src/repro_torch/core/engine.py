@@ -46,6 +46,11 @@ no counterpart (PyTorch runs eagerly), and the serving registry captures
 :func:`batch_runner` in one CUDA graph per bucket where the reference
 AOT-compiles it.
 
+Tracing (``repro_torch.obs``): the first call of a ``(cfg, backend, B)``
+key counts ``engine.jit_miss`` and runs inside an ``engine.jit_compile``
+span (where the reference compiles; here the kernel libraries load and
+cuDNN picks its algorithms), every later one ``engine.jit_hit``.
+
 Layouts match the reference at every public function: rasters are
 channels-last (B, T, H, W, C), conv weights HWIO (K, K, C_in, C_out),
 occupancy (N, C_in, K², P). Integer stats are int32.
@@ -60,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..device import resolve_device
 from . import encoding
 from .aeq import (aeq_from_raster_batch, kernel_span, phase_occupancy,
@@ -858,11 +864,37 @@ def infer_batch(params, thresholds, cfg: SNNConfig, images, *,
     share the batch. Padding a bucket and slicing the valid prefix
     (:func:`infer_batch_masked`) equals the unpadded call.
     """
+    return _traced_call(cfg, backend, True, params, thresholds, images,
+                        device)
+
+
+# (cfg, backend, B) keys already run once in this process; B is None for
+# ``infer`` (the reference's per-sample jit key)
+_jit_seen: set = set()
+
+
+def _first_call(key) -> bool:
+    if key in _jit_seen:
+        return False
+    _jit_seen.add(key)
+    return True
+
+
+def _traced_call(cfg, backend, batched, params, thresholds, images, device):
+    """The batched call, counted as a first call or a repeat of its key
+    (``infer``'s calls, ``batched=False``, have a key of their own)."""
     device = resolve_device(device)
     run = batch_runner(cfg, backend)
     params, thresholds = to_device(params, thresholds, device)
     images = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images)
                              else images, dtype=torch.float32, device=device)
+    B = images.shape[0] if batched else None
+    if _first_call((cfg, backend, B)):
+        obs.counter("engine.jit_miss")
+        with obs.span("engine.jit_compile", backend=backend, B=B or 0,
+                      spec=cfg.spec):
+            return run(params, thresholds, images)
+    obs.counter("engine.jit_hit")
     return run(params, thresholds, images)
 
 
@@ -874,8 +906,8 @@ def infer(params, thresholds, cfg: SNNConfig, image, *,
     The batch of one through :func:`infer_batch`, its batch axis stripped,
     so the result equals that sample's row of any batch it is part of.
     """
-    logits, stats = infer_batch(params, thresholds, cfg, image[None],
-                                backend=backend, device=device)
+    logits, stats = _traced_call(cfg, backend, False, params, thresholds,
+                                 image[None], device)
     return logits[0], SNNStats(*(a[0] for a in stats))
 
 

@@ -5,11 +5,24 @@ kernel's plain PyTorch version — by the tensor's device alone, never as a
 fallback after a failed launch. ``launch_counts`` (one plain integer per
 kernel, in the role of ``repro.kernels.ops.dispatch_counts``) counts kernel
 launches only: it stays 0 on the CPU.
+
+Tracing (``repro_torch.obs``) counts each dispatch of the fused pipeline
+as ``kernels.dispatch.fused:{impl}`` and of the int8 head as
+``kernels.dispatch.quant_matmul:{backend}``, named in the reference's
+vocabulary so one trace reads both packages: ``cuda`` / ``sparse_cuda``
+the Hopper kernels (the reference's ``pallas`` / ``sparse_pallas``);
+``xla`` B1's plain version (drop mask + conv, the realization the
+reference names ``xla``), ``sparse`` B3's event list, ``ref`` the oracles
+and B2's plain int32 product. The counts differ by design: the
+reference's fire at trace time, once per compiled plan; these fire per
+Python dispatch — per eager call, and once per CUDA-graph capture (a
+replay runs no Python).
 """
 from __future__ import annotations
 
 import math
 
+from .. import obs
 from . import ref as _ref
 from ._cuda import launch_counts, reset_launch_counts  # noqa: F401
 from .event_accum import event_accum_cuda, event_accum_plain
@@ -31,6 +44,10 @@ def fused_spike_accum(occ, weights, *, K, n_win, bits, depth, H, W,
     ``weight_bits`` selects the int-quantized accumulate of ``"sparse"`` and
     ``"ref"``; B1 has none.
     """
+    cuda = occ.device.type == "cuda"
+    name = {None: "cuda" if cuda else "xla",
+            "sparse": "sparse_cuda" if cuda else "sparse"}.get(impl, impl)
+    obs.counter(f"kernels.dispatch.fused:{name}")
     if impl == "ref":
         kw = dict(K=K, n_win=n_win, depth=depth, H=H, W=W)
         if weight_bits is not None:
@@ -38,7 +55,7 @@ def fused_spike_accum(occ, weights, *, K, n_win, bits, depth, H, W,
                 occ, weights, weight_bits=weight_bits, **kw)
         return _ref.fused_spike_accum_ref(occ, weights, **kw)
     if impl == "sparse":
-        if occ.device.type == "cuda":
+        if cuda:
             return fused_spike_accum_sparse_cuda(
                 occ, weights, K=K, n_win=n_win, depth=depth, H=H, W=W,
                 n_rows=n_rows, weight_bits=weight_bits)
@@ -54,7 +71,7 @@ def fused_spike_accum(occ, weights, *, K, n_win, bits, depth, H, W,
     if weight_bits is not None:
         raise ValueError("the fused pipeline has no int-quantized accumulate "
                          "path (use impl='sparse' or 'ref')")
-    if occ.device.type == "cuda":
+    if cuda:
         return fused_spike_accum_cuda(occ, weights, K=K, n_win=n_win,
                                       depth=depth, H=H, W=W)
     return fused_spike_accum_plain(occ, weights, K=K, n_win=n_win,
@@ -64,7 +81,9 @@ def fused_spike_accum(occ, weights, *, K, n_win, bits, depth, H, W,
 def quant_matmul(a_q, b_q, a_scale, b_scale):
     """Dequantized fp32 product of two int8 operands (exact int accumulate)."""
     if a_q.device.type == "cuda":
+        obs.counter("kernels.dispatch.quant_matmul:cuda")
         return quant_matmul_cuda(a_q, b_q, a_scale, b_scale)
+    obs.counter("kernels.dispatch.quant_matmul:ref")
     return quant_matmul_plain(a_q, b_q, a_scale, b_scale)
 
 

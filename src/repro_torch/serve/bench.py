@@ -34,26 +34,13 @@ import time
 import numpy as np
 
 from ..core import engine
+from ..obs import percentiles
 from ..study.artifacts import StatsRecord
 from ..study.stages import price_record
 from .api import InferResponse
 from .batching import DEFAULT_BUCKETS, BucketPolicy
 from .registry import ModelRegistry
 from .runtime import ServeRuntime
-
-DEFAULT_QS = (50.0, 95.0, 99.0)
-
-
-def percentiles(values, qs=DEFAULT_QS) -> dict:
-    """``{q: value}`` via ``np.percentile`` (linear interpolation) over
-    float32 samples; NaNs for no samples (a copy of the reference's
-    ``obs.percentiles``, so a run reports the reference's numbers)."""
-    a = np.asarray(list(values), dtype=np.float32)
-    if a.size == 0:
-        return {float(q): float("nan") for q in qs}
-    out = np.percentile(a, list(qs))
-    return {float(q): float(v) for q, v in zip(qs, out)}
-
 
 @dataclasses.dataclass
 class LoadResult:

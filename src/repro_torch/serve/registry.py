@@ -1,5 +1,6 @@
 """Multi-model registry: named serving handles + a plan per bucket (port of
-``repro.serve.registry``, without the mesh or persistence).
+``repro.serve.registry``, without the mesh; persistence is
+``serve/persist.py``).
 
 A :class:`ModelHandle` owns one servable SNN — params and thresholds on its
 device, the engine config, a backend name, and the pricing options its
@@ -17,6 +18,13 @@ bucket:
   which fills the same cache and ``compile_count``.
 
 The :class:`ModelRegistry` LRU-bounds the handles themselves.
+
+Tracing (``repro_torch.obs``) uses the reference's names: ``serve.plan_hit``
+/ ``serve.plan_compile`` per plan lookup, a ``serve.aot_compile`` span
+around building a plan (on the card: the eager run and the capture; every
+obs call stays outside the captured region), ``serve.plan_adopt``,
+``serve.plan_evict`` events with ``serve.plan_evictions``, and
+``serve.model_evict`` / ``serve.model_evictions``.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import collections
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import engine
 from ..device import resolve_device
 from ..kernels import ops
@@ -134,22 +143,34 @@ class ModelHandle:
 
     def _evict(self) -> None:
         while len(self._plans) > self.plan_cache_size:
-            self._plans.popitem(last=False)
+            evicted, _ = self._plans.popitem(last=False)
+            obs.event("serve.plan_evict", model=self.name, bucket=evicted)
+            obs.counter("serve.plan_evictions")
 
-    def plan_for(self, bucket: int):
-        """The plan for this bucket size (LRU-cached): on the card a CUDA
-        graph captured at the exact (config, backend, B) shape, on the CPU
-        the eager call. A cache hit is a dict lookup; eviction drops the
-        least recently used plan (and frees its graph)."""
-        if bucket in self._plans:
-            self._plans.move_to_end(bucket)
-            return self._plans[bucket]
+    def build_plan(self, bucket: int):
+        """A new plan for this bucket size, not installed: on the card a
+        CUDA graph captured at the exact (config, backend, B) shape (its
+        launches recorded in ``plan_launches``), on the CPU the eager
+        call."""
         if self.device.type == "cuda":
             plan = GraphPlan(self._runner, self.params, self.thresholds,
                              self._shape(bucket), self.device, self._pool)
             self.plan_launches[bucket] = plan.launches
-        else:
-            plan = EagerPlan(self._runner, self.params, self.thresholds)
+            return plan
+        return EagerPlan(self._runner, self.params, self.thresholds)
+
+    def plan_for(self, bucket: int):
+        """The plan for this bucket size (LRU-cached, see
+        :meth:`build_plan`). A cache hit is a dict lookup; eviction drops
+        the least recently used plan (and frees its graph)."""
+        if bucket in self._plans:
+            self._plans.move_to_end(bucket)
+            obs.counter("serve.plan_hit")
+            return self._plans[bucket]
+        obs.counter("serve.plan_compile")
+        with obs.span("serve.aot_compile", model=self.name,
+                      backend=self.backend, bucket=bucket):
+            plan = self.build_plan(bucket)
         self.compile_count += 1
         self._plans[bucket] = plan
         self._evict()
@@ -161,11 +182,14 @@ class ModelHandle:
     def adopt_plan(self, bucket: int, plan) -> None:
         """Install a ready plan for ``bucket`` — ``plan(images, n_valid) ->
         (logits, stats)`` of the valid prefix, for a (B, H, W, C) float32
-        numpy bucket, as :class:`GraphPlan` and :class:`EagerPlan` are. It enters the same LRU but does **not**
-        bump ``compile_count``: an adopted plan is a cache hit by
-        construction, so the warmup guard keeps working."""
+        numpy bucket, as :class:`GraphPlan` and :class:`EagerPlan` are. It
+        enters the same LRU but does **not** bump ``compile_count``: an
+        adopted plan is a cache hit by construction, so the warmup guard
+        keeps working (``serve/persist.py`` restores a checkpoint's plans
+        through here)."""
         self._plans.pop(bucket, None)
         self._plans[bucket] = plan
+        obs.counter("serve.plan_adopt")
         self._evict()
 
     def run_bucket(self, images, n_valid: int):
@@ -238,7 +262,9 @@ class ModelRegistry:
         self._models.pop(name, None)
         self._models[name] = handle
         while len(self._models) > self.capacity:
-            self._models.popitem(last=False)
+            evicted, _ = self._models.popitem(last=False)
+            obs.event("serve.model_evict", model=evicted)
+            obs.counter("serve.model_evictions")
         return handle
 
     def register_study(self, name: str, spec, *, cache=None,

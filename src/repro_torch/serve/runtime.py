@@ -1,7 +1,11 @@
 """The serving loop: admission queue -> dynamic batcher -> per-request meters.
 
-Port of ``repro.serve.runtime`` without the mesh and the tracing calls.
-Every clock read goes through ``ServeRuntime.clock`` (wall time by
+Port of ``repro.serve.runtime`` without the mesh, traced under the
+reference's names (``repro_torch.obs``): the ``serve.execute`` and
+``serve.price`` spans, ``serve.bucket_occupancy`` and ``serve.pad_fraction``
+histograms, ``serve.batches`` and ``serve.requests`` counters, and one
+``serve.request`` event a response whose waterfall segments telescope to
+its ``latency_s``, beside ``serve.request_latency_s``. Every clock read goes through ``ServeRuntime.clock`` (wall time by
 default); a load generator on a virtual clock passes its own arrival times
 and batch launch times (``submit(arrival_s=)``, ``step(now=)``).
 Each :meth:`ServeRuntime.step` forms ONE batch: it picks the next model
@@ -21,6 +25,7 @@ import time
 
 import numpy as np
 
+from .. import obs
 from ..study.artifacts import StatsRecord
 from ..study.stages import price_record
 from .api import InferRequest, InferResponse, ServeError
@@ -161,10 +166,13 @@ class ServeRuntime:
         # [t_step0, t_exec0) batch-form, [t_exec0, t_exec1) execute,
         # [t_exec1, t_done) price + response assembly. Their sum IS the
         # step total, so the per-request breakdown accounts for the whole
-        # measured latency.
+        # measured latency (pinned by tests/test_torch_obs.py).
         t_exec0 = self.clock()
         launch = t_exec0 if now is None else now
-        logits, stats = handle.run_bucket(padded, len(taken))  # synchronizes
+        with obs.span("serve.execute", model=model, bucket=bucket,
+                      valid=len(taken)):
+            # synchronizes the device before it returns
+            logits, stats = handle.run_bucket(padded, len(taken))
         t_exec1 = self.clock()
         service_s = t_exec1 - t_exec0
         batch_form_s = t_exec0 - t_step0
@@ -175,6 +183,11 @@ class ServeRuntime:
         self.n_served += len(taken)
         self.n_padded_slots += bucket - len(taken)
         self.bucket_histogram[bucket] += 1
+        if obs.enabled():
+            obs.observe("serve.bucket_occupancy", len(taken) / bucket)
+            obs.observe("serve.pad_fraction", pad_fraction)
+            obs.counter("serve.batches")
+            obs.counter("serve.requests", len(taken))
 
         logits = logits.cpu().numpy()
         ev, sp, ao, ovf, qw = (
@@ -187,9 +200,10 @@ class ServeRuntime:
         # pricing row i alone)
         batch_record = StatsRecord(events_in=ev, spikes_out=sp, add_ops=ao,
                                    queue_words=qw, overflow=ovf)
-        e = price_record(batch_record, input_hw=handle.cfg.input_hw,
-                         compressed=handle.cfg.compressed,
-                         vmem_resident=handle.vmem_resident)
+        with obs.span("serve.price", model=model, valid=len(taken)):
+            e = price_record(batch_record, input_hw=handle.cfg.input_hw,
+                             compressed=handle.cfg.compressed,
+                             vmem_resident=handle.vmem_resident)
         energy_j = e.total_j.numpy()
         model_latency_s = e.latency_s.numpy()
 
@@ -216,6 +230,19 @@ class ServeRuntime:
         for resp in responses:
             resp.price_s = price_s
             resp.step_total_s = step_total_s
+        if obs.enabled():
+            for resp in responses:
+                # waterfall segments must not overlap: queue_wait_s
+                # (admission -> launch) already contains the batch-form
+                # window, so the event's queue segment stops at t_step0
+                wf_queue = max(0.0, resp.queue_wait_s - batch_form_s)
+                obs.event(
+                    "serve.request", rid=resp.rid, model=resp.model,
+                    bucket=resp.bucket, pad_fraction=resp.pad_fraction,
+                    queue_wait_s=wf_queue, batch_form_s=batch_form_s,
+                    execute_s=service_s, price_s=price_s,
+                    latency_s=wf_queue + batch_form_s + service_s + price_s)
+                obs.observe("serve.request_latency_s", resp.latency_s)
         return responses
 
     def run_until_drained(self, max_steps: int = 100_000):

@@ -16,6 +16,9 @@ Two tiers:
 - **disk** — pickled numpy payloads under ``dir/`` for the expensive stages
   (train, convert by default). Filenames embed the key, so a config change
   can never alias an old file; unrecognized/legacy files are simply ignored.
+
+Tracing (``repro_torch.obs``): ``study.cache.{kind}.{mem_hit,disk_hit,miss}``
+per lookup and a ``study.{kind}`` span around each build, as the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from .. import obs
 
 
 def _feed(h, obj) -> None:
@@ -116,6 +121,7 @@ class StudyCache:
         if mem_key in self._mem:
             art = self._mem.pop(mem_key)   # re-insert: LRU recency
             self._mem[mem_key] = art
+            obs.counter(f"study.cache.{kind}.mem_hit")
             return art
 
         use_disk = self.dir is not None and kind in self.disk_kinds
@@ -130,9 +136,12 @@ class StudyCache:
                     pass  # truncated/corrupt/stale-format file: rebuild
                 else:
                     self._remember(kind, key, art)
+                    obs.counter(f"study.cache.{kind}.disk_hit")
                     return art
 
-        art = build()
+        obs.counter(f"study.cache.{kind}.miss")
+        with obs.span(f"study.{kind}", key=key, tag=tag):
+            art = build()
         self._remember(kind, key, art)
         if use_disk:
             os.makedirs(self.dir, exist_ok=True)

@@ -43,6 +43,7 @@ import tempfile
 import numpy as np
 import torch
 
+from .. import obs
 from ..checkpoint.checkpoint import restore as ckpt_restore
 from ..checkpoint.checkpoint import save as ckpt_save
 from ..core import conversion, encoding, engine
@@ -453,6 +454,15 @@ def price(spec: StudySpec, collected: CollectArtifact,
     CNN side re-runs the quantized forward on the params' device, because
     ``weight_bits`` changes it, and prices the static CNN costs.
     """
+    # NOT in stage_counts: that counter tallies cache-missable stage
+    # executions; price has no cache tier
+    obs.counter("study.stage.price")
+    with obs.span("study.price", dataset=spec.dataset, backend=spec.backend):
+        return _price_impl(spec, collected, trained, labels)
+
+
+def _price_impl(spec: StudySpec, collected: CollectArtifact,
+                trained: TrainArtifact, labels) -> Report:
     device = _device_of(trained.params)
     params = _params_on(trained.params, device)
     images = torch.as_tensor(collected.images, device=device)

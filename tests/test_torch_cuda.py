@@ -777,6 +777,76 @@ def test_graph_replay_equals_eager(cuda, backend, weight_bits):
     assert torch.equal(first, kept)
 
 
+@pytest.mark.cuda
+def test_load_registry_on_card_replays_bit_equal_to_the_builder(cuda,
+                                                                 tmp_path):
+    """A registry saved on the card and restored there re-captures every
+    saved bucket (``compile_count`` 0, ``cached_buckets`` the ladder, B1
+    and, on the w8 handle, B2 in each graph), and each bucket's replay
+    equals the builder's graph's bit for bit, fp32 and w8."""
+    from repro_torch.serve import ModelRegistry, load_registry, save_registry
+
+    spec = "8C3-P2-8C3-P3-10"
+    _, params, th, _ = _dyadic_net(spec, 12, 2, 3)
+    rng = np.random.default_rng(8)
+    params = [{k: (v + rng.normal(0, 0.05, v.shape)).astype(np.float32)
+               for k, v in p.items()} for p in params]   # Gaussian offsets
+    cfg = engine.SNNConfig(spec=spec, input_hw=12, input_c=2, T=3, depth=4,
+                           mode="mttfs_cont")
+    buckets = (1, 4, 16)
+    reg = ModelRegistry(device=cuda)
+    for name, bits in (("fp32", None), ("w8", 8)):
+        reg.register(name, params, th, cfg._replace(weight_bits=bits))
+        reg.get(name).warmup(buckets)
+    save_registry(reg, str(tmp_path / "registry"))
+    restored = load_registry(str(tmp_path / "registry"), device=cuda)
+    imgs = rng.random((16, 12, 12, 2)).astype(np.float32)
+    for name in ("fp32", "w8"):
+        h, built = restored.get(name), reg.get(name)
+        assert h.cached_buckets() == buckets and h.compile_count == 0
+        for b in buckets:
+            assert h.plan_launches[b]["fused_spike_accum"] == 1
+            assert h.plan_launches[b]["quant_matmul"] == int(name == "w8")
+            for n in sorted({b, b // 2 + 1}):
+                lr, sr = h.run_bucket(imgs[:b], n)
+                lb, sb = built.run_bucket(imgs[:b], n)
+                assert torch.equal(lr, lb)
+                assert all(torch.equal(a, c) for a, c in zip(sr, sb))
+        h.warmup(buckets)
+        assert h.compile_count == 0
+
+
+@pytest.mark.cuda
+def test_fresh_compile_cache_misses_then_hits_in_a_second_process(
+        cuda, tmp_path):
+    """A fresh ``REPRO_TORCH_COMPILE_CACHE`` directory: the first process
+    compiles every source (misses, puts), a second one compiles none."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import _cuda
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src),
+               REPRO_TORCH_COMPILE_CACHE=str(tmp_path / "kernels"))
+    code = ("import json; from repro_torch.kernels import _cuda; "
+            "from repro_torch.core import compile_cache as c; "
+            "_cuda.build_all(); _cuda.load('quant_matmul'); "
+            "print(json.dumps(c.counters))")
+    n = len(_cuda.SOURCES)
+    seen = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             check=True, capture_output=True, text=True,
+                             timeout=900)
+        c = json.loads(out.stdout.strip().splitlines()[-1])
+        seen.append((c["hits"], c["misses"], c["puts"]))
+    assert seen == [(0, n, n), (n, 0, 0)]
+
+
 # ---------------------------------------------------------------------------
 # the study pipeline on the card
 # ---------------------------------------------------------------------------
