@@ -166,12 +166,52 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    B1 and B2 launches of the phase's window (captures and replays,
    in-process and per replica).
 
+12. parallel — data-parallel execution on the card over a 2- and a 4-way
+   virtual mesh on the first card (and every card when there is more than
+   one): ``parallel.infer_batch_sharded`` at B in {1, 3, 16, 64} on
+   ``dense`` and ``queue_pallas``, fp32 and ``weight_bits=8``, bit-equal
+   to ``engine.infer_batch`` (logits and every stat), with the counts
+   zeroed just before and read just after: B1 6 launches a shard and B2 1;
+   ``use_mesh`` routing ``engine.infer_batch`` (queue_pallas sharded,
+   queue_sparse on the local runner, both equal). Serving: a registry of
+   the fp32 and w8 handles behind ``ServeRuntime(..., mesh=...)`` for each
+   mesh, buckets (1, 4, 16, 64), a closed loop of 256 requests a handle
+   whose responses (logits, stats, energies) equal the unsharded
+   runtime's; the graphs' reserved memory per mesh; bucket-64 replays of
+   each in turns (wall, device busy, idle share: on one card the shards
+   share its SMs, so these are readings); ``set_mesh`` on the live
+   registry drops every plan and re-captures each bucket once; and the
+   fleet phase's registry restored with ``load_registry(mesh=)`` builds no
+   plan at load and answers alike.
+13. sweep  — the paper grid (``study.sweep.paper_grid()``: 3 datasets x
+   ``dense``, ``queue_pallas`` x 8 pricing variants = 48 cells, StudySpec's
+   own recipe) through ``run_sweep`` into ``chiprun_out/sweep``, killed
+   after ``SWEEP_KILL_AFTER`` cells and resumed by a second call over the
+   same directories: the two calls together train 3 times, convert 3 and
+   collect 6 (nothing twice), and a third call resumes all 48 and runs no
+   stage. B1's launches in the window equal the queue_pallas collects'.
+   A cached train lookup is timed per dataset. One (mnist,
+   ``queue_pallas``) pair is swept again with ``fresh=True`` on a 2-way
+   mesh over train and convert on disk: one collect, B1 6 a shard a batch,
+   rows equal to the grid's. Then the converted-vs-direct grid on MNIST
+   (``paper_grid(direct=True, datasets=("mnist",), pricing=
+   QUICK_PRICING)``) with its pairing section. Printed: seconds a cell
+   (p50, p95, max), stage executions, the grid's seconds and first rows.
+
 Output: human-readable lines, then a JSON ``{"kernels": [...]}`` line, then
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --only parallel
+
+runs the device and build phases, saves the fleet phase's registry, then
+the parallel phase alone: on a machine of several cards it adds the mesh
+over every card to the virtual ones. It prints no kernel line, and its
+details go to ``chiprun_out/chip_smoke_parallel.json``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import json
@@ -374,7 +414,8 @@ def phase_device():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     smi_line = smi.stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    log(f"[device] {kind} | nvidia-smi: {smi_line} | torch "
+    log(f"[device] {kind} | nvidia-smi: "
+        f"{' / '.join(smi.stdout.strip().splitlines())} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} visible")
     return kind, smi_line
@@ -2486,7 +2527,405 @@ def phase_fleet(params, device, kind):
                           for r in replicas])
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Data-parallel execution and the paper-grid sweep
+# ---------------------------------------------------------------------------
+
+PAR_BATCHES = (1, 3, 16, 64)
+PAR_WINDOWS = 3       # profiled bucket-64 windows per mesh, in turns
+SWEEP_KILL_AFTER = 20  # cells the first grid call runs before it "dies"
+
+
+def _meshes():
+    """A 2- and a 4-way virtual mesh over the first card, and a mesh over
+    every card when there is more than one."""
+    import torch
+
+    from repro_torch import parallel
+
+    card = torch.device("cuda", 0)
+    meshes = {"2x cuda:0": parallel.DataMesh((card,) * 2),
+              "4x cuda:0": parallel.DataMesh((card,) * 4)}
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} cards"] = parallel.data_mesh()
+    return meshes
+
+
+def phase_parallel(params, device, kind):
+    """Sharded execution on the card: ``infer_batch_sharded`` bit-equal to
+    one device, ``use_mesh`` routing and ``queue_sparse``'s fallback, B1's
+    launches per shard, serving over a mesh (responses bit-equal,
+    ``set_mesh``, graph memory, bucket-64 readings) and the fleet registry
+    restored over a mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import make_cifar_like
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (BucketPolicy, ModelRegistry, ServeRuntime,
+                                   bench, load_registry)
+
+    th = [1.0] * len(params)
+    cfg = engine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C_IN, T=T,
+                           mode=MODE, depth=DEPTH)
+    p, t = engine.to_device(params, th, device)
+    meshes = _meshes()
+    imgs = torch.as_tensor(make_cifar_like(64, seed=SEED + 17)[0],
+                           device=device)
+
+    # sharded == single device, every stat; the counts cover the loop
+    ops.reset_launch_counts()
+    cases, want_b1, want_b2 = 0, 0, 0
+    for backend in ("dense", "queue_pallas"):
+        for bits in (None, 8):
+            c = cfg._replace(weight_bits=bits)
+            for B in PAR_BATCHES:
+                ref = engine.infer_batch(p, t, c, imgs[:B], backend=backend,
+                                         device=device)
+                want_b1 += 6 * (backend == "queue_pallas")
+                want_b2 += bits == 8
+                for label, mesh in meshes.items():
+                    got = parallel.infer_batch_sharded(
+                        p, t, c, imgs[:B], backend=backend, mesh=mesh)
+                    n = parallel.mesh_size(mesh)
+                    want_b1 += 6 * n * (backend == "queue_pallas")
+                    want_b2 += n * (bits == 8)
+                    check(torch.equal(got[0], ref[0])
+                          and _stats_equal(got[1], ref[1]),
+                          f"[parallel] {backend} w{bits} B={B} on {label}: "
+                          "sharded differs from one device")
+                    cases += 1
+    counted = dict(ops.launch_counts)
+    check(counted["fused_spike_accum"] == want_b1
+          and counted["quant_matmul"] == want_b2,
+          f"[parallel] launches {_nonzero(counted)}, expected B1 {want_b1} "
+          f"(6 a shard), B2 {want_b2} (1 a shard)")
+    per_call = {}
+    for label, mesh in meshes.items():
+        ops.reset_launch_counts()
+        parallel.infer_batch_sharded(p, t, cfg, imgs, backend="queue_pallas",
+                                     mesh=mesh)
+        per_call[label] = ops.launch_counts["fused_spike_accum"]
+        check(per_call[label] == 6 * parallel.mesh_size(mesh),
+              f"[parallel] one sharded call on {label} launched B1 "
+              f"{per_call[label]} times")
+    log(f"[parallel] {kind}: infer_batch_sharded == infer_batch bit for bit "
+        f"(logits and 5 stats) in {cases} cases: dense and queue_pallas, "
+        f"fp32 and w8, B {PAR_BATCHES}, meshes {list(meshes)}; window "
+        f"launches B1 {counted['fused_spike_accum']}, B2 "
+        f"{counted['quant_matmul']} (as expected); B1 per bucket-64 call "
+        f"{per_call} (6 a shard)")
+
+    mesh2 = meshes["2x cuda:0"]
+    ref = engine.infer_batch(p, t, cfg, imgs, backend="queue_pallas",
+                             device=device)
+    sparse_ref = engine.infer_batch(p, t, cfg, imgs, backend="queue_sparse",
+                                    device=device)
+    ops.reset_launch_counts()
+    with parallel.use_mesh(mesh2):
+        routed = engine.infer_batch(p, t, cfg, imgs, backend="queue_pallas")
+        sparse = engine.infer_batch(p, t, cfg, imgs, backend="queue_sparse")
+    use_counts = dict(ops.launch_counts)
+    check(engine._batch_dispatch is None, "[parallel] use_mesh leaked")
+    check(torch.equal(routed[0], ref[0]) and _stats_equal(routed[1], ref[1])
+          and torch.equal(sparse[0], sparse_ref[0])
+          and _stats_equal(sparse[1], sparse_ref[1]),
+          "[parallel] use_mesh changed a result")
+    check(use_counts["fused_spike_accum"] == 12
+          and use_counts["fused_spike_accum_sparse"] == 6,
+          f"[parallel] use_mesh launches {_nonzero(use_counts)}: expected "
+          "B1 12 (routed, 2 shards) and B3 6 (queue_sparse, local)")
+    log(f"[parallel] use_mesh(2x cuda:0): engine.infer_batch routed "
+        f"(queue_pallas, B1 {use_counts['fused_spike_accum']}) and "
+        f"queue_sparse on the local runner (B3 "
+        f"{use_counts['fused_spike_accum_sparse']}), both == one device")
+
+    # serving: one registry per mesh, the mesh given to the runtime
+    requests, _ = make_cifar_like(N_REQUESTS, seed=SEED + 19)
+    imgs64 = requests[:64]
+    regs, runtimes, graph_mib, answers = {}, {}, {}, {}
+    handle_names = (("cifar10-fp32", None), ("cifar10-w8", 8))
+    for label, mesh in [("no mesh", None)] + list(meshes.items()):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        reg = ModelRegistry(device=device)
+        for name, bits in handle_names:
+            reg.register(name, params, th, cfg._replace(weight_bits=bits))
+        rt = ServeRuntime(reg, BucketPolicy(BUCKETS), mesh=mesh)
+        for name, _ in handle_names:
+            reg.get(name).warmup(BUCKETS)
+        torch.cuda.synchronize()
+        graph_mib[label] = (torch.cuda.memory_reserved() - reserved0) / 2**20
+        if mesh is not None:
+            for name, bits in handle_names:
+                h = reg.get(name)
+                n = parallel.mesh_size(mesh) if h._bucket_sharded(64) else 1
+                check(h.plan_launches[64]["fused_spike_accum"] == 6 * n
+                      and h.plan_launches[64]["quant_matmul"]
+                      == n * (bits == 8)
+                      and h.plan_launches[1]["fused_spike_accum"] == 6,
+                      f"[parallel] {name} on {label}: captured launches "
+                      f"{h.plan_launches}")
+        regs[label], runtimes[label] = reg, rt
+        answers[label] = {name: bench.closed_loop(rt, name, requests)
+                          for name, _ in handle_names}
+    base = answers["no mesh"]
+    for label in meshes:
+        for name, _ in handle_names:
+            check(_responses_equal(base[name].responses,
+                                   answers[label][name].responses),
+                  f"[parallel] {name} served on {label} answered "
+                  "differently from the unsharded runtime")
+    rps = {label: {name: a[name].throughput_rps for name in a}
+           for label, a in answers.items()}
+    log(f"[parallel] serving: {N_REQUESTS} requests a handle, closed loop, "
+        f"buckets {BUCKETS}: responses (logits, stats, energies) on every "
+        f"mesh == the unsharded runtime's; req/s {rps}; the graphs reserve "
+        "MiB " + ", ".join(f"{k} {v:.1f}" for k, v in graph_mib.items()))
+
+    # bucket-64 readings, the meshes in turns (one card: shards of a
+    # virtual mesh share its SMs, so these are readings, not a gain)
+    order = ["no mesh"] + list(meshes)
+    windows = {label: [] for label in order}
+    for i in range(PAR_WINDOWS):
+        for label in (order if i % 2 == 0 else order[::-1]):
+            h = regs[label].get("cifar10-fp32")
+            windows[label].append(
+                profile_window(lambda h=h: h.run_bucket(imgs64, 64)))
+    readings = {label: {k: spread([w[k] for w in ws]) for k in WINDOW_KEYS}
+                for label, ws in windows.items()}
+    for label, o in readings.items():
+        mesh = meshes.get(label)
+        many = mesh is not None and len(set(mesh.devices)) > 1
+        note = ("device busy sums the cards, so 1 - busy / wall is no idle "
+                "share" if many else "the shards of a virtual mesh share one "
+                "card's SMs: a reading, not a gain")
+        log(f"[parallel] bucket 64 fp32 replay, {label}: wall "
+            f"{fmt_spread(o['unprofiled_wall_ms'])} ms, device busy "
+            f"{fmt_spread(o['device_busy_ms'])} ms, idle share "
+            f"{fmt_spread(o['idle_share'])} ({PAR_WINDOWS} windows x 5 "
+            f"calls, in turns; {note})")
+
+    # set_mesh on a live registry: plans dropped, every bucket re-captured
+    reg = regs["no mesh"]
+    before = {name: reg.get(name).compile_count for name, _ in handle_names}
+    reg.set_mesh(mesh2)
+    for name, _ in handle_names:
+        h = reg.get(name)
+        check(h.cached_buckets() == (), f"[parallel] set_mesh kept {name}'s "
+              f"plans {h.cached_buckets()}")
+        h.warmup(BUCKETS)
+        check(h.compile_count == before[name] + len(BUCKETS),
+              f"[parallel] {name}: compile_count {before[name]} -> "
+              f"{h.compile_count} after set_mesh + warmup")
+        res = bench.closed_loop(runtimes["no mesh"], name, requests)
+        check(_responses_equal(base[name].responses, res.responses),
+              f"[parallel] {name} after set_mesh answered differently")
+    log(f"[parallel] set_mesh(2x cuda:0) on the live registry dropped every "
+        f"plan; warmup re-captured {len(BUCKETS)} a handle (compile_count "
+        f"+{len(BUCKETS)}), answers unchanged")
+
+    # the fleet phase's registry restored over a mesh: no plan at load
+    restored = load_registry(str(FLEET_DIR / "registry"), device=device,
+                             mesh=mesh2)
+    rt = ServeRuntime(restored, BucketPolicy(BUCKETS))
+    for name, _ in handle_names:
+        h = restored.get(name)
+        check(h.mesh == mesh2 and h.cached_buckets() == ()
+              and h.compile_count == 0,
+              f"[parallel] {name} restored over a mesh built plans at load")
+        res = bench.closed_loop(rt, name, requests)
+        check(_responses_equal(base[name].responses, res.responses),
+              f"[parallel] {name} restored over a mesh answered differently")
+        check(h.compile_count == len(h.cached_buckets()) >= 1,
+              f"[parallel] {name}: compile_count {h.compile_count}")
+    log(f"[parallel] load_registry(fleet registry, mesh=2x cuda:0): no plan "
+        f"at load, buckets built on first use "
+        f"({restored.get('cifar10-fp32').cached_buckets()}), answers == the "
+        "unsharded runtime's")
+    del regs, runtimes, restored, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(meshes=list(meshes), cases=cases, launches=counted,
+                b1_per_bucket64_call=per_call, use_mesh_launches=use_counts,
+                serve_rps=rps, graph_mib=graph_mib, bucket64=readings,
+                windows=windows)
+
+
+def phase_sweep(kind):
+    """The paper grid on the card: 48 cells, killed after
+    ``SWEEP_KILL_AFTER`` and resumed with nothing computed twice, then a
+    pure resume; one (dataset, queue_pallas) pair again on a 2-way mesh
+    (rows == the grid's); the converted-vs-direct grid on MNIST."""
+    import math
+
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.study import (StudyCache, reset_stage_counts, stages,
+                                   stage_counts)
+    from repro_torch.study.sweep import (QUICK_PRICING, markdown_grid,
+                                         paper_grid, run_sweep)
+
+    root = ROOT / "chiprun_out" / "sweep"
+    shutil.rmtree(root, ignore_errors=True)
+    cache_dir = str(root / "cache")
+    cells = paper_grid()
+    check(len(cells) == 48, f"[sweep] the full grid has {len(cells)} cells")
+
+    def quiet(*_):
+        pass
+
+    def b1_per_collect(spec):
+        plan = engine.compile_plan(spec.net, spec.input_hw, spec.input_c)
+        return ((len(plan.convs) - (spec.input_mode == "analog"))
+                * math.ceil(spec.n_eval / spec.batch))
+
+    want_b1 = sum(b1_per_collect(c) for c in cells
+                  if c.backend == "queue_pallas" and c.compressed
+                  and c.vmem_resident and c.weight_bits == 8)
+    ops.reset_launch_counts()
+    reset_stage_counts()
+    t0 = time.perf_counter()
+    killed = run_sweep(cells, out_dir=str(root), cache_dir=cache_dir,
+                       max_cells=SWEEP_KILL_AFTER, log=quiet)
+    first = dict(stage_counts)
+    reset_stage_counts()     # a new StudyCache below: a new process's view
+    done = run_sweep(cells, out_dir=str(root), cache_dir=cache_dir, log=quiet)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    second = dict(stage_counts)
+    launches = dict(ops.launch_counts)
+    check(killed["executed"] == SWEEP_KILL_AFTER and not killed["complete"],
+          f"[sweep] the killed call ran {killed['executed']} cells")
+    check(done["complete"] and done["resumed"] == SWEEP_KILL_AFTER
+          and done["executed"] == 48 - SWEEP_KILL_AFTER,
+          f"[sweep] the resume: {done['resumed']} resumed, "
+          f"{done['executed']} executed")
+    total = {k: first.get(k, 0) + second.get(k, 0)
+             for k in set(first) | set(second)}
+    check(total == {"train": 3, "convert": 3, "collect": 6},
+          f"[sweep] stage executions {first} + {second}: a stage ran twice "
+          "or not at all")
+    check(launches["fused_spike_accum"] == want_b1,
+          f"[sweep] B1 launched {launches['fused_spike_accum']} times in the "
+          f"grid, expected {want_b1} (the queue_pallas collects)")
+    reset_stage_counts()
+    again = run_sweep(cells, out_dir=str(root), cache_dir=cache_dir, log=quiet)
+    check(again["resumed"] == 48 and again["executed"] == 0
+          and dict(stage_counts) == {},
+          f"[sweep] a pure resume executed {again['executed']} cells, "
+          f"stages {dict(stage_counts)}")
+    timing = done["timing"]
+    elapsed = [r["elapsed_s"] for r in done["cells"]]
+    log(f"[sweep] {kind}: the full paper grid, 48 cells (3 datasets x dense,"
+        f" queue_pallas x 8 pricing variants), killed after "
+        f"{SWEEP_KILL_AFTER} and resumed: {grid_s:.1f} s; stage executions "
+        f"killed call {first}, resume {second} (nothing twice), a third "
+        f"call resumed all 48 and ran nothing; seconds a cell p50 "
+        f"{timing['p50_s']:.3f}, p95 {timing['p95_s']:.3f}, max "
+        f"{timing['max_s']:.3f}, sum {timing['total_s']:.1f}; "
+        f"{48 / 6:.0f} cells per collect; B1 {launches['fused_spike_accum']}"
+        " launches in the window (as expected)")
+    grid_md = markdown_grid(done["cells"])
+    for line in grid_md.splitlines()[2:10]:
+        log(f"[sweep]   {line}")
+
+    # a cached train lookup regenerates and hashes the training images
+    train_hit_s = {}
+    cache = StudyCache(dir=cache_dir)
+    for ds in ("mnist", "svhn", "cifar10"):
+        spec = next(c for c in cells if c.dataset == ds)
+        stages.train(spec, cache=cache)            # disk hit into memory
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stages.train(spec, cache=cache)            # memory hit
+        torch.cuda.synchronize()
+        train_hit_s[ds] = time.perf_counter() - t1
+    log(f"[sweep] a cached train lookup (memory hit: images regenerated and "
+        f"hashed for the key) takes s {train_hit_s}; 16 cells a dataset pay "
+        f"it: {16 * sum(train_hit_s.values()):.2f} s of the grid")
+
+    # one pair again, collected on a 2-way mesh over train/convert on disk
+    mesh2 = _meshes()["2x cuda:0"]
+    pair = [c for c in cells
+            if c.dataset == "mnist" and c.backend == "queue_pallas"]
+    ops.reset_launch_counts()
+    reset_stage_counts()
+    sharded = run_sweep(
+        pair, out_dir=str(root / "mesh"), mesh=mesh2, fresh=True, log=quiet,
+        cache=StudyCache(dir=cache_dir, disk_kinds=("train", "convert")))
+    mesh_launches = ops.launch_counts["fused_spike_accum"]
+    check(dict(stage_counts) == {"collect": 1},
+          f"[sweep] the sharded pair ran stages {dict(stage_counts)}")
+    check(mesh_launches == 2 * b1_per_collect(pair[0]),
+          f"[sweep] the sharded collect launched B1 {mesh_launches} times")
+    by_id = {r["cell_id"]: r for r in done["cells"]}
+    for r in sharded["cells"]:
+        a = {k: v for k, v in r.items() if k != "elapsed_s"}
+        b = {k: v for k, v in by_id[r["cell_id"]].items() if k != "elapsed_s"}
+        check(a == b, f"[sweep] cell {r['cell_id']} collected on a 2-way "
+              "mesh differs from the grid's row")
+    log(f"[sweep] mnist/queue_pallas ({len(pair)} cells) again with "
+        f"fresh=True on mesh 2x cuda:0 over train/convert on disk: one "
+        f"collect, B1 {mesh_launches} launches (2 shards x event stages x "
+        f"batches), rows == "
+        f"the grid's (elapsed_s aside); {sharded['timing']['total_s']:.2f} s")
+
+    # the converted-vs-direct grid
+    dcells = paper_grid(direct=True, datasets=("mnist",),
+                        pricing=QUICK_PRICING)
+    reset_stage_counts()
+    t1 = time.perf_counter()
+    direct = run_sweep(dcells, out_dir=str(root / "direct"),
+                       cache_dir=cache_dir, log=quiet)
+    direct_s = time.perf_counter() - t1
+    dmd = markdown_grid(direct["cells"])
+    pairs = dmd.split("## Converted vs direct")[-1]
+    check(direct["complete"] and "## Converted vs direct" in dmd
+          and pairs.count("| mnist |") == 4,
+          "[sweep] the direct grid lacks its pairing section")
+    log(f"[sweep] direct grid ({len(dcells)} cells, mnist) {direct_s:.1f} s, "
+        f"stages {dict(stage_counts)}:")
+    for line in pairs.strip().splitlines():
+        log(f"[sweep]   {line}")
+    shutil.rmtree(cache_dir, ignore_errors=True)   # the cells and reports stay
+    return dict(grid_s=grid_s, killed_stages=first, resume_stages=second,
+                timing={k: v for k, v in timing.items() if k != "by_cell"},
+                elapsed_s=elapsed, launches=launches, train_hit_s=train_hit_s,
+                sharded_pair_b1=mesh_launches,
+                sharded_pair_s=sharded["timing"]["total_s"],
+                direct_s=direct_s, grid_md=grid_md, direct_md=dmd)
+
+
+def save_fleet_registry(params, device):
+    """The fleet phase's two-handle registry, saved to its directory
+    (for the parallel phase run alone)."""
+    from repro_torch.core import engine
+    from repro_torch.serve import ModelRegistry, save_registry
+
+    th = [1.0] * len(params)
+    cfg = engine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C_IN, T=T,
+                           mode=MODE, depth=DEPTH)
+    ck_dir = FLEET_DIR / "registry"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    reg = ModelRegistry(device=device)
+    for name, bits in (("cifar10-fp32", None), ("cifar10-w8", 8)):
+        reg.register(name, params, th, cfg._replace(weight_bits=bits))
+        reg.get(name).warmup(BUCKETS)
+    save_registry(reg, str(ck_dir))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python3 chip_smoke.py")
+    ap.add_argument("--only", choices=("parallel",), default=None,
+                    help="run the device, build and parallel phases alone")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2504,6 +2943,23 @@ def main() -> int:
 
     params = init_params(torch.Generator().manual_seed(SEED), SPEC, HW, C_IN,
                          device=device)
+    if args.only == "parallel":
+        save_fleet_registry(params, device)
+        t_par = time.perf_counter()
+        sharded = phase_parallel(params, device, kind)
+        sharded["phase_s"] = time.perf_counter() - t_par
+        log(f"[parallel] phase {sharded['phase_s']:.1f} s")
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_parallel.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi_line, build=build, parallel=sharded,
+            seconds=time.perf_counter() - t_all), indent=1))
+        log(f"[done] {time.perf_counter() - t_all:.1f} s")
+        print(smi_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     th = tuple(torch.ones((), device=device) for _ in params)
     cfg = engine.SNNConfig(spec=SPEC, input_hw=HW, input_c=C_IN, T=T,
                            mode=MODE, depth=DEPTH)
@@ -2540,6 +2996,14 @@ def main() -> int:
     replicas["phase_s"] = time.perf_counter() - t_fleet
     log(f"[fleet] phase {replicas['phase_s']:.1f} s; the cache dir holds "
         f"{replicas['cache_dir_bytes']} bytes")
+    t_par = time.perf_counter()
+    sharded = phase_parallel(params, device, kind)
+    sharded["phase_s"] = time.perf_counter() - t_par
+    log(f"[parallel] phase {sharded['phase_s']:.1f} s")
+    t_sweep = time.perf_counter()
+    grid = phase_sweep(kind)
+    grid["phase_s"] = time.perf_counter() - t_sweep
+    log(f"[sweep] phase {grid['phase_s']:.1f} s")
 
     # per-kernel summary at the serve shapes: one bucket-64 execution,
     # i.e. B1 and B3 over the six event-driven stages at depth 64, B2 at
@@ -2627,6 +3091,7 @@ def main() -> int:
                    mask_contract=mask, sparse=sparse, word=word,
                    kernels=kernels, profile=profile, study=study,
                    direct=direct, obs=traced, fleet=replicas,
+                   parallel=sharded, sweep=grid,
                    seconds=time.perf_counter() - t_all)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

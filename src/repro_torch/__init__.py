@@ -8,8 +8,9 @@ the reference runs Pallas TPU kernels. It imports neither ``jax`` nor
 Layout mirrors the reference so every counterpart is easy to find:
 ``core/`` (encoding, AEQ helpers, neurons, the engine), ``kernels/`` (the
 Hopper kernels, their plain PyTorch versions and the dispatch layer),
-``serve/`` (registry + runtime), ``study/`` (per-request pricing) and
-``data/`` (procedural datasets).
+``serve/`` (registry + runtime), ``study/`` (the staged study and the
+grid sweep), ``parallel/`` and ``sharding/`` (data-parallel execution over
+a device mesh) and ``data/`` (procedural datasets).
 
 Device discipline: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without that explicit request they

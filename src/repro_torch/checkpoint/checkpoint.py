@@ -21,7 +21,8 @@ Trees are nests of dicts (sorted keys), NamedTuples (field names) and
 lists/tuples (indices), with tensors or arrays at the leaves; a tensor is
 saved as its host numpy copy. ``restore`` puts each leaf on its template
 leaf's device and dtype when the template leaf is a tensor, and returns the
-numpy array otherwise. (``reshard_on_load`` needs a mesh and is not ported.)
+numpy array otherwise. :func:`reshard_on_load` places a restored tree's
+leaves onto the devices given for them.
 """
 from __future__ import annotations
 
@@ -60,19 +61,21 @@ def _restore_leaf(template, arr: np.ndarray):
     return arr
 
 
-def _unflatten_like(template, flat, prefix=""):
+def _unflatten_like(template, flat, prefix="", leaf=_restore_leaf):
+    """``template``'s structure, each leaf ``leaf(template_leaf,
+    flat[path])`` at ``_flatten``'s path."""
     if isinstance(template, dict):
-        return {k: _unflatten_like(template[k], flat, f"{prefix}/{k}")
+        return {k: _unflatten_like(template[k], flat, f"{prefix}/{k}", leaf)
                 for k in template}
     if hasattr(template, "_fields"):
         return type(template)(*[
-            _unflatten_like(v, flat, f"{prefix}/{k}")
+            _unflatten_like(v, flat, f"{prefix}/{k}", leaf)
             for k, v in zip(template._fields, template)])
     if isinstance(template, (list, tuple)):
         return type(template)(
-            _unflatten_like(v, flat, f"{prefix}/{i}")
+            _unflatten_like(v, flat, f"{prefix}/{i}", leaf)
             for i, v in enumerate(template))
-    return _restore_leaf(template, flat[prefix])
+    return leaf(template, flat[prefix])
 
 
 def _to_host(leaf) -> np.ndarray:
@@ -198,6 +201,30 @@ def restore(root: str, template, *, step: int | None = None,
             last_err = e
             continue
     raise IOError(f"no restorable checkpoint under {root}: {last_err}")
+
+
+def reshard_on_load(tree, placements):
+    """Place restored leaves (arrays or tensors) onto (possibly other)
+    devices, dtypes kept.
+
+    ``placements`` has ``tree``'s structure; each of its leaves is a device
+    (a ``torch.device`` or its name) or a mesh (``parallel.DataMesh``), whose
+    first device takes the leaf: the sharded runners replicate params from
+    there to each shard's device.
+    """
+    where = _flatten(placements)
+    paths = set(_flatten(tree))
+    if paths != set(where):
+        raise ValueError(
+            f"placements do not match the tree: leaves without a placement "
+            f"{sorted(paths - set(where))}, placements without a leaf "
+            f"{sorted(set(where) - paths)}")
+
+    def place(leaf, p):
+        device = p.devices[0] if hasattr(p, "devices") else torch.device(p)
+        return torch.as_tensor(leaf, device=device)
+
+    return _unflatten_like(tree, where, leaf=place)
 
 
 class AsyncCheckpointer:

@@ -29,6 +29,14 @@ class AEFormat(NamedTuple):
     invalid_word: int   # the packed word representing an empty slot
 
 
+def spare_patterns(width: int, kernel: int) -> int:
+    """Number of unused bit patterns per coordinate field (paper: 6 for
+    W=28, K=3)."""
+    n_win = math.ceil(width / kernel)
+    bits = max(1, math.ceil(math.log2(n_win))) if n_win > 1 else 1
+    return (1 << bits) - n_win
+
+
 def make_format(width: int, kernel: int, *, compressed: bool = True) -> AEFormat:
     """Build the AE word format for a (square) feature map of ``width``.
 

@@ -49,7 +49,13 @@ AOT-compiles it.
 Tracing (``repro_torch.obs``): the first call of a ``(cfg, backend, B)``
 key counts ``engine.jit_miss`` and runs inside an ``engine.jit_compile``
 span (where the reference compiles; here the kernel libraries load and
-cuDNN picks its algorithms), every later one ``engine.jit_hit``.
+cuDNN picks its algorithms), every later one ``engine.jit_hit``. A registry
+change (``register_backend``, or any neuron or surrogate registry write,
+through ``neuron._on_registry_change``) restarts that tracking and empties
+the plan cache, as the reference's does.
+
+``parallel.use_mesh`` installs :data:`_batch_dispatch`, through which
+:func:`infer_batch` runs sharded over a device mesh.
 
 Layouts match the reference at every public function: rasters are
 channels-last (B, T, H, W, C), conv weights HWIO (K, K, C_in, C_out),
@@ -71,7 +77,8 @@ from . import encoding
 from .aeq import (aeq_from_raster_batch, kernel_span, phase_occupancy,
                   segment_keep, span_map)
 from .encoding import AEFormat, encode_ttfs
-from .neuron import NeuronModel, get_neuron_model, surrogate_model
+from .neuron import (NeuronModel, _on_registry_change, get_neuron_model,
+                     surrogate_model)
 from .quantization import quantize_symmetric
 from .snn_layers import conv_same_nhwc, event_conv2d, spike_maxpool_hwc
 
@@ -632,6 +639,7 @@ def register_backend(name: str, backend, *, overwrite: bool = False):
     if name in _BACKENDS and not overwrite:
         raise ValueError(f"backend {name!r} already registered")
     _BACKENDS[name] = backend
+    _jit_seen.clear()      # a new backend may shadow a name already run
     return backend
 
 
@@ -862,10 +870,24 @@ def infer_batch(params, thresholds, cfg: SNNConfig, images, *,
     blocks with a fixed summation order, and the fp32 head multiplies
     fixed-shape tiles — so row ``i`` does not depend on which other rows
     share the batch. Padding a bucket and slicing the valid prefix
-    (:func:`infer_batch_masked`) equals the unpadded call.
+    (:func:`infer_batch_masked`) equals the unpadded call, and so does
+    splitting the batch over a device mesh (``repro_torch.parallel``).
+    Inside ``parallel.use_mesh(mesh)`` this call runs sharded over ``mesh``
+    (whose devices then decide placement, whatever ``device`` says).
     """
+    if _batch_dispatch is not None:
+        return _batch_dispatch(params, thresholds, cfg, images,
+                               backend=backend)
     return _traced_call(cfg, backend, True, params, thresholds, images,
                         device)
+
+
+# Batch dispatch override, installed and restored by ``parallel.use_mesh``:
+# when set, ``infer_batch`` routes through the sharded executor. It must be
+# bit-exact against the local path (the mask contract makes it so), which is
+# why callers above the engine, the study's collect cache in particular,
+# never need to know whether a mesh was active.
+_batch_dispatch = None
 
 
 # (cfg, backend, B) keys already run once in this process; B is None for
@@ -880,14 +902,20 @@ def _first_call(key) -> bool:
     return True
 
 
+def images_on(images, device):
+    """A batch (numpy or tensor) as a float32 tensor on ``device``; a
+    tensor already in place is not copied."""
+    return torch.as_tensor(np.asarray(images) if not torch.is_tensor(images)
+                           else images, dtype=torch.float32, device=device)
+
+
 def _traced_call(cfg, backend, batched, params, thresholds, images, device):
     """The batched call, counted as a first call or a repeat of its key
     (``infer``'s calls, ``batched=False``, have a key of their own)."""
     device = resolve_device(device)
     run = batch_runner(cfg, backend)
     params, thresholds = to_device(params, thresholds, device)
-    images = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images)
-                             else images, dtype=torch.float32, device=device)
+    images = images_on(images, device)
     B = images.shape[0] if batched else None
     if _first_call((cfg, backend, B)):
         obs.counter("engine.jit_miss")
@@ -940,3 +968,8 @@ register_backend("queue", QueueBackend(accum="word"))
 register_backend("queue_pallas", QueueBackend())
 register_backend("queue_ref", QueueBackend(accum="ref"))
 register_backend("queue_sparse", SparseQueueBackend())
+
+# a neuron or surrogate registry change restarts first-call tracking and
+# drops the compiled plans, as a backend registration does
+_on_registry_change.append(_jit_seen.clear)
+_on_registry_change.append(compile_plan.cache_clear)

@@ -7,6 +7,11 @@ and for direct training (``repro_torch.training.surrogate``) the
 straight-through spike and a differentiable fire builder per mode:
 :func:`surrogate_model` returns a forward-identical :class:`NeuronModel`
 whose float spikes carry the surrogate's gradient through autograd.
+Every registry write runs the :data:`_on_registry_change` hooks, through
+which the engine and the data-parallel runner cache reset what they keep
+per mode. The per-step API (:class:`IFState`, :func:`if_init`,
+:func:`if_step`, :func:`if_run`) runs one population of neurons step by
+step.
 
 - ``if_reset``   : classic IF: reset to 0 after a spike.
 - ``mttfs``      : spike-once latch, no reset (the paper's accelerator model).
@@ -43,6 +48,16 @@ class NeuronModel(NamedTuple):
 
 _REGISTRY: dict[str, NeuronModel] = {}
 
+# Callbacks run whenever a registry here changes: the engine's first-call
+# tracking and plan cache, and the data-parallel runner cache, register
+# their resets (they import this module, not the other way round)
+_on_registry_change: list[Callable[[], None]] = []
+
+
+def _changed() -> None:
+    for hook in _on_registry_change:
+        hook()
+
 
 def register_neuron_model(name: str, fire: FireFn, *,
                           pool_latch_once: bool = False,
@@ -52,7 +67,15 @@ def register_neuron_model(name: str, fire: FireFn, *,
         raise ValueError(f"neuron mode {name!r} already registered")
     model = NeuronModel(name=name, fire=fire, pool_latch_once=pool_latch_once)
     _REGISTRY[name] = model
+    _changed()
     return model
+
+
+def unregister_neuron_model(name: str) -> None:
+    """Remove a registered variant (no-op if absent); runs the hooks only
+    when something was removed."""
+    if _REGISTRY.pop(name, None) is not None:
+        _changed()
 
 
 def get_neuron_model(name: str) -> NeuronModel:
@@ -62,6 +85,10 @@ def get_neuron_model(name: str) -> NeuronModel:
         raise ValueError(
             f"unknown neuron mode {name!r}; registered modes: "
             f"{sorted(_REGISTRY)}") from None
+
+
+def available_modes() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
 
 
 def _fire_if_reset(v, latch, vth):
@@ -118,6 +145,7 @@ def register_surrogate(name: str, primal: Callable, grad: Callable, *,
     sg = Surrogate(name=name, primal=primal, grad=grad,
                    clamp_width=clamp_width)
     _SURROGATES[name] = sg
+    _changed()
     return sg
 
 
@@ -216,6 +244,7 @@ def register_surrogate_fire(mode: str, builder: Callable, *,
     if mode in _SURROGATE_FIRE and not overwrite:
         raise ValueError(f"surrogate fire for mode {mode!r} already registered")
     _SURROGATE_FIRE[mode] = builder
+    _changed()
 
 
 def surrogate_model(mode: str, surrogate: str = "superspike",
@@ -269,3 +298,49 @@ def _sg_fire_mttfs_cont(spike):
 register_surrogate_fire("if_reset", _sg_fire_if_reset)
 register_surrogate_fire("mttfs", _sg_fire_mttfs)
 register_surrogate_fire("mttfs_cont", _sg_fire_mttfs_cont)
+
+
+# ---------------------------------------------------------------------------
+# Stateful per-step API
+# ---------------------------------------------------------------------------
+
+class IFState(NamedTuple):
+    """State of a population of IF neurons (any tensor shape)."""
+
+    v_mem: torch.Tensor        # membrane potentials V_m
+    has_spiked: torch.Tensor   # bool latch: the neuron has crossed threshold
+
+
+def if_init(shape, dtype=torch.float32, device=None) -> IFState:
+    return IFState(v_mem=torch.zeros(shape, dtype=dtype, device=device),
+                   has_spiked=torch.zeros(shape, dtype=torch.bool,
+                                          device=device))
+
+
+def if_step(state: IFState, input_current: torch.Tensor, v_thresh, *,
+            mode: str = "mttfs",
+            leak: float = 0.0) -> tuple[IFState, torch.Tensor]:
+    """One time step of Eq. (1)-(2): integrate ``input_current``, subtract
+    ``leak`` (the leaky-IF extension; 0 in the paper), fire through the
+    registered ``mode``. Returns ``(new_state, spikes)`` with ``spikes``
+    0/1 in the membrane's dtype."""
+    model = get_neuron_model(mode)
+    v = state.v_mem + input_current
+    if leak:
+        v = v - torch.as_tensor(leak, dtype=v.dtype, device=v.device)
+    vth = torch.as_tensor(v_thresh, dtype=v.dtype, device=v.device)
+    v, spikes, latch = model.fire(v, state.has_spiked, vth)
+    return IFState(v_mem=v, has_spiked=latch), spikes.to(v.dtype)
+
+
+def if_run(input_currents: torch.Tensor, v_thresh, *, mode: str = "mttfs",
+           leak: float = 0.0) -> torch.Tensor:
+    """Run T steps of (T, *shape) input currents from a zero state; returns
+    the (T, *shape) spike raster."""
+    state = if_init(input_currents.shape[1:], input_currents.dtype,
+                    input_currents.device)
+    spikes = []
+    for cur in input_currents:
+        state, s = if_step(state, cur, v_thresh, mode=mode, leak=leak)
+        spikes.append(s)
+    return torch.stack(spikes)

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -227,14 +229,13 @@ int launch_bulk(const void* x, const void* idx, void* out, int T, int S,
   }
   const size_t smem =
       (size_t)kStages * stage_bytes + sizeof(int32_t) * per_block;
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static bool opted_in[per_device::kMaxDevices] = {};
+  const int err = per_device::once(opted_in, [] {
+    return cudaFuncSetAttribute(
         moe_gather_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kStages * kStageBytes + (int)sizeof(int32_t) * kMaxSlots);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = true;
-  }
+  });
+  if (err) return err;
   moe_gather_bulk_kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
       static_cast<const char*>(x), static_cast<const int32_t*>(idx),
       static_cast<char*>(out), T, S, row_bytes, rows_per, pieces,

@@ -96,6 +96,8 @@
 
 #include <type_traits>
 
+#include "per_device.cuh"
+
 namespace spike_accum {
 // Internal linkage: every library that includes this header keeps its own
 // kernels and its own opt-in flags (a function-local static of an inline
@@ -678,22 +680,20 @@ inline int launch_encode(EncodeKernel kernel, const void* occ,
   return (int)cudaGetLastError();
 }
 
-// One instantiation, and so one opt-in flag, per kernel: the gather's
-// dynamic shared memory may exceed the 48 KiB default.
+// One instantiation, and so one set of opt-in flags (one a device), per
+// kernel: the gather's dynamic shared memory may exceed the 48 KiB default.
 template <auto kernel>
 int opt_in_smem() {
-  static bool opted_in = false;
-  if (!opted_in) {
+  static bool opted_in[per_device::kMaxDevices] = {};
+  return per_device::once(opted_in, [] {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
           (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = true;
-  }
-  return 0;
+    return err;
+  });
 }
 
 template <int K, GatherKernel kernel>

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;      // most threads a block
@@ -121,13 +123,15 @@ int launch(const void* occ, void* words, void* counts, int R, int P,
   };
   if (smem > (size_t)kSmemMax)  // one row's words do not fit: no tile
     return args(spike_compact_kernel<G, false>, 0);
-  static bool opted_in = false;  // one flag per G, i.e. per kernel
-  if (smem > 48 * 1024 && !opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        spike_compact_kernel<G, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = true;
+  // one set of flags per G, i.e. per kernel, one flag a device
+  static bool opted_in[per_device::kMaxDevices] = {};
+  if (smem > 48 * 1024) {
+    const int err = per_device::once(opted_in, [] {
+      return cudaFuncSetAttribute(
+          spike_compact_kernel<G, true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    });
+    if (err) return err;
   }
   return args(spike_compact_kernel<G, true>, smem);
 }

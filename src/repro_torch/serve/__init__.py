@@ -2,7 +2,8 @@
 
 - :class:`~.batching.BucketPolicy` — dynamic batching into padded buckets;
 - :class:`~.registry.ModelRegistry` — named models on one device, each with
-  a plan per bucket (a captured CUDA graph on the card);
+  a plan per bucket (a captured CUDA graph on the card; over a data mesh,
+  one per shard for the buckets that divide it);
 - :class:`~.runtime.ServeRuntime` — admission queue + batcher +
   per-request energy metering through ``study.price_record``, on a wall or
   virtual clock;

@@ -189,7 +189,7 @@ def _restore_plan(handle, bucket: int, entry: dict) -> bool:
 def load_registry(root: str, *, names=None, plans: bool = True,
                   capacity: int | None = None,
                   plan_cache_size: int | None = None,
-                  device=None) -> ModelRegistry:
+                  device=None, mesh=None) -> ModelRegistry:
     """Rebuild a :class:`ModelRegistry` from a :func:`save_registry` dir
     (this package's or the reference's) on ``device`` (``None``: the card).
 
@@ -199,6 +199,10 @@ def load_registry(root: str, *, names=None, plans: bool = True,
     ``plans=True`` each saved bucket's plan is rebuilt and adopted, so a
     following ``handle.warmup(buckets)`` is execute-only —
     ``compile_count`` stays 0; the kernels come from the compile cache.
+    With a ``mesh`` (``parallel.DataMesh``) the handles serve over it and
+    no plan is built at load: each bucket's plan, sharded where the bucket
+    divides the mesh, is built on its first use, as the reference's
+    ``load_registry(mesh=)`` compiles lazily.
     """
     manifest = read_manifest(root)
     entries = manifest["models"]
@@ -212,7 +216,7 @@ def load_registry(root: str, *, names=None, plans: bool = True,
 
     registry = ModelRegistry(
         capacity=capacity if capacity is not None else max(4, len(entries)),
-        plan_cache_size=plan_cache_size or 8, device=device)
+        plan_cache_size=plan_cache_size or 8, device=device, mesh=mesh)
 
     for name, entry in entries.items():
         with obs.span("coldstart.restore_params", model=name):
@@ -244,7 +248,7 @@ def load_registry(root: str, *, names=None, plans: bool = True,
             backend=entry["backend"], vmem_resident=entry["vmem_resident"])
         handle.source_key = entry.get("source_key")
 
-        if plans:
+        if plans and mesh is None:
             with obs.span("coldstart.restore_plans", model=name,
                           n=len(entry["plans"])):
                 for b, pentry in sorted(entry["plans"].items(),

@@ -1,6 +1,5 @@
 """Multi-model registry: named serving handles + a plan per bucket (port of
-``repro.serve.registry``, without the mesh; persistence is
-``serve/persist.py``).
+``repro.serve.registry``; persistence is ``serve/persist.py``).
 
 A :class:`ModelHandle` owns one servable SNN — params and thresholds on its
 device, the engine config, a backend name, and the pricing options its
@@ -15,7 +14,13 @@ bucket:
   (the plan's few hundred kernels in one launch from the host) and copies
   the valid prefix out;
 - on the CPU (``device="cpu"``) a plan is the eager bucket-shaped call,
-  which fills the same cache and ``compile_count``.
+  which fills the same cache and ``compile_count``;
+- with a data mesh set (``mesh=``, :meth:`ModelHandle.set_mesh`), a bucket
+  that divides the mesh size gets a :class:`ShardedPlan`: one plan per
+  shard (a graph captured on the shard's device, from the params' copy
+  there, in that device's pool), run in turn, the outputs gathered to the
+  first device. Its responses are bit-equal to the unsharded plan's; it
+  counts one ``compile_count`` for the bucket.
 
 The :class:`ModelRegistry` LRU-bounds the handles themselves.
 
@@ -37,6 +42,8 @@ from .. import obs
 from ..core import engine
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel import mesh_size
+from ..parallel.executor import gather, on_device, replicate
 from .api import ServeError
 from .batching import DEFAULT_BUCKETS
 
@@ -53,11 +60,15 @@ class EagerPlan:
 
     def __init__(self, runner, params, thresholds):
         self.runner, self.params, self.thresholds = runner, params, thresholds
+        self.launches: dict = {}
+
+    def replay(self, images):
+        """Run the full bucket of host images; its outputs, all rows."""
+        return self.runner(self.params, self.thresholds,
+                           torch.from_numpy(images))
 
     def __call__(self, images, n_valid: int):
-        logits, stats = self.runner(self.params, self.thresholds,
-                                    torch.from_numpy(images))
-        return engine.slice_valid(logits, stats, n_valid)
+        return engine.slice_valid(*self.replay(images), n_valid)
 
 
 class GraphPlan:
@@ -72,6 +83,8 @@ class GraphPlan:
     """
 
     def __init__(self, runner, params, thresholds, shape, device, pool):
+        # the graph reads these tensors' memory: the plan keeps them alive
+        self.params, self.thresholds = params, thresholds
         self.images = torch.zeros(shape, dtype=torch.float32, device=device)
         self.staging = torch.empty(shape, dtype=torch.float32,
                                    pin_memory=True)
@@ -82,16 +95,49 @@ class GraphPlan:
         torch.cuda.current_stream(device).wait_stream(side)
         before = dict(ops.launch_counts)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
+        # captured on the side stream of this plan's device: the default
+        # capture stream lives on the first device the process captured on,
+        # and ops on another card's tensors would run outside the capture
+        with torch.cuda.graph(self.graph, pool=pool, stream=side):
             self.logits, self.stats = runner(params, thresholds, self.images)
         self.launches = {k: ops.launch_counts[k] - before[k] for k in before}
 
-    def __call__(self, images, n_valid: int):
+    def replay(self, images):
+        """Copy host images in and replay; the static outputs, all rows
+        (a later replay overwrites them)."""
         # host images go to the static input through pinned memory
         np.copyto(self.staging.numpy(), images)
         self.images.copy_(self.staging, non_blocking=True)
         self.graph.replay()
-        return _slice_copies(self.logits, self.stats, n_valid)
+        return self.logits, self.stats
+
+    def __call__(self, images, n_valid: int):
+        return _slice_copies(*self.replay(images), n_valid)
+
+
+class ShardedPlan:
+    """A bucket's plan over a data mesh: one plan per shard, in shard order.
+
+    Shard ``i`` holds rows ``[i*k, (i+1)*k)`` of the bucket (``k`` = bucket
+    / mesh size) and runs on its own device; the shards run in turn and
+    their outputs are gathered to ``device`` (the mesh's first) in batch
+    order, so the result equals the unsharded plan's bit for bit (the
+    engine's mask contract). The gathered tensors are new, so the valid
+    prefix needs no copy.
+    """
+
+    def __init__(self, shards, device):
+        self.shards, self.device = shards, device
+        self.launches = {}
+        for plan in shards:
+            for name, n in plan.launches.items():
+                self.launches[name] = self.launches.get(name, 0) + n
+
+    def __call__(self, images, n_valid: int):
+        k = images.shape[0] // len(self.shards)
+        outs = [plan.replay(images[i * k:(i + 1) * k])
+                for i, plan in enumerate(self.shards)]
+        return engine.slice_valid(*gather(outs, self.device), n_valid)
 
 
 class ModelHandle:
@@ -99,7 +145,7 @@ class ModelHandle:
 
     def __init__(self, name: str, params, thresholds, cfg, *,
                  backend: str = "queue_pallas", vmem_resident: bool = True,
-                 plan_cache_size: int = 8, device=None):
+                 plan_cache_size: int = 8, device=None, mesh=None):
         b = engine.get_backend(backend)      # fail fast on unknown names
         if getattr(b, "host_dispatch", False):
             raise ValueError(
@@ -127,6 +173,9 @@ class ModelHandle:
         self._runner = engine.batch_runner(cfg, backend)
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
+        self.mesh = mesh                     # data mesh for divisible buckets
+        # shard device -> the graph pool of this handle's plans there
+        self._pools: dict = {}
         # bucket B -> plan, insertion-ordered for LRU
         self._plans: collections.OrderedDict = collections.OrderedDict()
         # plans built (cache misses in plan_for): the observable the warmup
@@ -136,6 +185,23 @@ class ModelHandle:
         # this handle), and how often a plan of it has run
         self.plan_launches: dict[int, dict] = {}
         self.replay_count: collections.Counter = collections.Counter()
+
+    def set_mesh(self, mesh) -> None:
+        """(Re)point this handle at a data mesh; drops its plans if the
+        mesh changes. A plan is bound to its placement, so the next
+        ``plan_for`` builds against the new one; results stay bit-equal
+        either way (the mask contract)."""
+        if mesh != self.mesh:
+            self.mesh = mesh
+            self._plans.clear()
+            self._pools.clear()
+
+    def _bucket_sharded(self, bucket: int) -> bool:
+        """Sharded plan iff a mesh of more than one device is set and the
+        bucket divides it; a small bucket that does not (B=1 on a 2-way
+        mesh) stays on the single-device plan."""
+        n = mesh_size(self.mesh)
+        return n > 1 and bucket % n == 0
 
     def _shape(self, bucket: int) -> tuple:
         cfg = self.cfg
@@ -151,13 +217,41 @@ class ModelHandle:
         """A new plan for this bucket size, not installed: on the card a
         CUDA graph captured at the exact (config, backend, B) shape (its
         launches recorded in ``plan_launches``), on the CPU the eager
-        call."""
+        call; with a mesh that the bucket divides, a :class:`ShardedPlan` of
+        such plans, one per shard."""
+        if self._bucket_sharded(bucket):
+            plan = self._sharded_plan(bucket)
+        else:
+            plan = self._device_plan(self.params, self.thresholds,
+                                     self._shape(bucket), self.device,
+                                     self._pool)
         if self.device.type == "cuda":
-            plan = GraphPlan(self._runner, self.params, self.thresholds,
-                             self._shape(bucket), self.device, self._pool)
             self.plan_launches[bucket] = plan.launches
-            return plan
-        return EagerPlan(self._runner, self.params, self.thresholds)
+        return plan
+
+    def _device_plan(self, params, thresholds, shape, device, pool):
+        if device.type == "cuda":
+            return GraphPlan(self._runner, params, thresholds, shape, device,
+                             pool)
+        return EagerPlan(self._runner, params, thresholds)
+
+    def _sharded_plan(self, bucket: int) -> ShardedPlan:
+        n = len(self.mesh.devices)
+        shape = (bucket // n,) + self._shape(bucket)[1:]
+        shards = []
+        for d in map(resolve_device, self.mesh.devices):
+            p, th = replicate(self.params, self.thresholds, d, self.mesh)
+            if d.type != "cuda":
+                pool = None
+            elif th[0] is self.thresholds[0]:   # the handle's device
+                pool = self._pool
+            else:
+                if d not in self._pools:
+                    self._pools[d] = torch.cuda.graph_pool_handle()
+                pool = self._pools[d]
+            with on_device(d):
+                shards.append(self._device_plan(p, th, shape, d, pool))
+        return ShardedPlan(shards, resolve_device(self.mesh.devices[0]))
 
     def plan_for(self, bucket: int):
         """The plan for this bucket size (LRU-cached, see
@@ -169,7 +263,8 @@ class ModelHandle:
             return self._plans[bucket]
         obs.counter("serve.plan_compile")
         with obs.span("serve.aot_compile", model=self.name,
-                      backend=self.backend, bucket=bucket):
+                      backend=self.backend, bucket=bucket,
+                      sharded=self._bucket_sharded(bucket)):
             plan = self.build_plan(bucket)
         self.compile_count += 1
         self._plans[bucket] = plan
@@ -240,7 +335,7 @@ class ModelRegistry:
     """Name -> :class:`ModelHandle`, LRU-bounded to ``capacity`` models."""
 
     def __init__(self, capacity: int = 4, plan_cache_size: int = 8, *,
-                 device=None):
+                 device=None, mesh=None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if plan_cache_size < 1:
@@ -249,7 +344,16 @@ class ModelRegistry:
         self.capacity = capacity
         self.plan_cache_size = plan_cache_size
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._models: collections.OrderedDict = collections.OrderedDict()
+
+    def set_mesh(self, mesh) -> None:
+        """Point the registry and every registered handle at ``mesh``:
+        later registrations inherit it, existing handles drop their plans
+        and rebuild them lazily (:meth:`ModelHandle.set_mesh`)."""
+        self.mesh = mesh
+        for handle in self._models.values():
+            handle.set_mesh(mesh)
 
     def register(self, name: str, params, thresholds, cfg, *,
                  backend: str = "queue_pallas",
@@ -258,7 +362,7 @@ class ModelRegistry:
         handle = ModelHandle(name, params, thresholds, cfg, backend=backend,
                              vmem_resident=vmem_resident,
                              plan_cache_size=self.plan_cache_size,
-                             device=self.device)
+                             device=self.device, mesh=self.mesh)
         self._models.pop(name, None)
         self._models[name] = handle
         while len(self._models) > self.capacity:

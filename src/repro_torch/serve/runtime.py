@@ -1,6 +1,6 @@
 """The serving loop: admission queue -> dynamic batcher -> per-request meters.
 
-Port of ``repro.serve.runtime`` without the mesh, traced under the
+Port of ``repro.serve.runtime``, traced under the
 reference's names (``repro_torch.obs``): the ``serve.execute`` and
 ``serve.price`` spans, ``serve.bucket_occupancy`` and ``serve.pad_fraction``
 histograms, ``serve.batches`` and ``serve.requests`` counters, and one
@@ -38,9 +38,15 @@ class ServeRuntime:
 
     def __init__(self, registry: ModelRegistry,
                  policy: BucketPolicy | None = None, *,
-                 clock=time.perf_counter):
+                 clock=time.perf_counter, mesh=None):
         self.registry = registry
         self.policy = policy or BucketPolicy()
+        if mesh is not None:
+            # data-parallel serving: the registered models rebuild their
+            # buckets that divide the mesh as sharded plans (see
+            # ModelHandle.build_plan); bit-exact, so responses and energy
+            # metering equal single-device serving
+            registry.set_mesh(mesh)
         self.clock = clock
         self.queue: collections.deque[InferRequest] = collections.deque()
         self._next_rid = 0

@@ -9,7 +9,8 @@ chain; :func:`sweep` prices variants against shared recorded stats;
 :func:`export_artifact` / :func:`load_artifact` ship a converted or
 directly trained net as a checkpoint directory.
 ``core.comparison.run_study`` survives as a deprecation shim over
-:func:`run_with_data`. Not ported yet: the grid runner ``study/sweep.py``.
+:func:`run_with_data`. The grid runner is ``python -m
+repro_torch.study.sweep`` (:mod:`.sweep`).
 """
 from ..core.energy import reprice as price_stats  # noqa: F401
 from .artifacts import (CollectArtifact, ConvertArtifact,  # noqa: F401
@@ -23,6 +24,17 @@ from .stages import (collect, convert, export_artifact,  # noqa: F401
                      fit_cnn, from_params, load_artifact, price,
                      price_record, reset_stage_counts, run, run_with_data,
                      stage_counts, sweep, train, train_snn)
+
+# the sweep *runner* module. Importing it binds the package attribute
+# ``sweep`` to the module, shadowing the stage helper just imported; the
+# module is a callable module type delegating __call__ to stages.sweep, so
+# `study.sweep(base, variants)` works either way, and importing it here
+# makes the shadowing independent of import order. `from . import sweep`
+# would not do: the name is already bound, so the submodule import would be
+# skipped; import_module always runs it and rebinds the attribute.
+import importlib as _importlib  # noqa: E402
+
+sweep = _importlib.import_module(".sweep", __name__)
 
 __all__ = [
     "StudySpec", "StudySpecError", "UnknownDatasetError",

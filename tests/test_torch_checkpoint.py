@@ -5,7 +5,7 @@ async writes and GC, NamedTuple state, the SNN params tree with empty pool
 slots) on tensor trees, then the on-disk format across the two packages:
 a tree the JAX package saves restores in the port bit-equal, and the
 reverse, for plain trees and for ``(params, AdamWState)`` with empty pool
-slots. (``reshard_on_load`` needs a mesh and is not ported.)
+slots. (``reshard_on_load`` is held in ``tests/test_torch_parallel.py``.)
 """
 import json
 import os

@@ -1065,3 +1065,135 @@ def test_encode_rate_with_a_cuda_generator(cuda):
     assert abs(float(r1.mean()) - 0.5) < 0.05
     with pytest.raises(ValueError, match="image's device"):
         encode_rate(img, 4, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_bits", [None, 8])
+def test_sharded_equals_one_device_on_card(cuda, weight_bits):
+    """``queue_pallas`` at B=64 on a 2-way virtual mesh over the card:
+    logits and every stat equal the single-device call bit for bit, B1
+    launched 6 times a shard (the CIFAR-10 net's event-driven stages) and
+    B2 once a shard on the w8 head; a served bucket 64 over the mesh
+    (one graph a shard) answers alike."""
+    from repro_torch import parallel
+    from repro_torch.core.snn_model import init_params
+    from repro_torch.serve import ModelRegistry
+
+    spec = "32C3-32C3-P3-64C3-64C3-P3-128C3-128C3-128C3-10"
+    params = init_params(torch.Generator().manual_seed(0), spec, 32, 3,
+                         device=cuda)
+    th = [1.0] * len(params)
+    cfg = engine.SNNConfig(spec=spec, input_hw=32, input_c=3, T=4, depth=64,
+                           mode="mttfs_cont", weight_bits=weight_bits)
+    imgs = np.random.default_rng(3).random((64, 32, 32, 3)).astype(np.float32)
+    mesh = parallel.DataMesh((torch.device("cuda", 0),) * 2)
+    ref = engine.infer_batch(params, th, cfg, imgs, backend="queue_pallas",
+                             device=cuda)
+    ops.reset_launch_counts()
+    got = parallel.infer_batch_sharded(params, th, cfg, imgs,
+                                       backend="queue_pallas", mesh=mesh)
+    assert ops.launch_counts["fused_spike_accum"] == 12
+    assert ops.launch_counts["quant_matmul"] == 2 * (weight_bits == 8)
+    assert torch.equal(got[0], ref[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+    h = ModelRegistry(device=cuda, mesh=mesh).register("m", params, th, cfg)
+    lr, sr = h.run_bucket(imgs, 40)
+    assert h.plan_launches[64]["fused_spike_accum"] == 12
+    assert torch.equal(lr, ref[0][:40])
+    assert all(torch.equal(a, b[:40]) for a, b in zip(sr, ref[1]))
+
+
+@pytest.mark.cuda
+def test_sweep_one_pair_on_card(cuda, tmp_path):
+    """One (dataset, queue_pallas) pair of the grid at the small study's
+    size on the card: the cells complete, share one collect, resume
+    without running a stage, and a 2-way mesh over the card gives the same
+    rows (``elapsed_s`` aside)."""
+    from repro_torch import parallel, study
+    from repro_torch.study.sweep import paper_grid, run_sweep
+
+    kw = {k: v for k, v in STUDY_KW.items() if k != "dataset"}
+    cells = paper_grid(datasets=(STUDY_KW["dataset"],),
+                       backends=("queue_pallas",),
+                       pricing=((True, True, 8), (False, False, 4)),
+                       overrides=kw)
+    study.reset_stage_counts()
+    first = run_sweep(cells, out_dir=str(tmp_path / "one"), log=print,
+                      cache_dir=str(tmp_path / "cache"))
+    assert first["complete"] and dict(study.stage_counts) == {
+        "train": 1, "convert": 1, "collect": 1}
+    study.reset_stage_counts()
+    again = run_sweep(cells, out_dir=str(tmp_path / "one"), log=print,
+                      cache_dir=str(tmp_path / "cache"))
+    assert again["resumed"] == 2 and dict(study.stage_counts) == {}
+    mesh = parallel.DataMesh((torch.device("cuda", 0),) * 2)
+    sharded = run_sweep(cells, out_dir=str(tmp_path / "mesh"), mesh=mesh,
+                        log=print, cache=study.StudyCache(
+                            dir=str(tmp_path / "cache"),
+                            disk_kinds=("train", "convert")))
+
+    def rows(s):
+        return [{k: v for k, v in r.items() if k != "elapsed_s"}
+                for r in s["cells"]]
+
+    assert rows(sharded) == rows(first)
+
+
+@pytest.fixture
+def cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices (a mesh over distinct "
+                    "cards)")
+    return n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["queue_pallas", "queue", "dense"])
+def test_sharded_over_every_card_equals_one_card(cards, backend):
+    """``data_mesh()`` over every visible card: each shard launches its
+    kernels on its own card (their shared-memory opt-in is kept per
+    device), and logits and stats equal one card's bit for bit, fp32 and
+    w8; a bucket served over the mesh answers alike."""
+    from repro_torch import parallel
+    from repro_torch.core.snn_model import init_params
+    from repro_torch.serve import ModelRegistry
+
+    spec = "32C3-32C3-P3-64C3-64C3-P3-128C3-128C3-128C3-10"
+    params = init_params(torch.Generator().manual_seed(0), spec, 32, 3,
+                         device=torch.device("cuda", 0))
+    th = [1.0] * len(params)
+    imgs = np.random.default_rng(5).random((64, 32, 32, 3)).astype(np.float32)
+    mesh = parallel.data_mesh()
+    assert parallel.mesh_size(mesh) == cards
+    for bits in (None, 8):
+        cfg = engine.SNNConfig(spec=spec, input_hw=32, input_c=3, T=4,
+                               depth=64, mode="mttfs_cont", weight_bits=bits)
+        ref = engine.infer_batch(params, th, cfg, imgs, backend=backend,
+                                 device=torch.device("cuda", 0))
+        got = parallel.infer_batch_sharded(params, th, cfg, imgs,
+                                           backend=backend, mesh=mesh)
+        assert got[0].device == torch.device("cuda", 0)
+        assert torch.equal(got[0], ref[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+        if backend != "queue":                # queue cannot be captured
+            h = ModelRegistry(device="cuda:0", mesh=mesh).register(
+                "m", params, th, cfg, backend=backend)
+            lr, sr = h.run_bucket(imgs, 64)
+            assert torch.equal(lr, ref[0])
+            assert all(torch.equal(a, b) for a, b in zip(sr, ref[1]))
+
+
+@pytest.mark.cuda
+def test_moe_gather_bulk_path_on_the_last_card(cards):
+    """B6's bulk path (rows of 2 KiB, past the 48 KiB shared-memory
+    default) on a card other than the first, launched with that card
+    current: its opt-in is made there too."""
+    dev = torch.device("cuda", cards - 1)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(64, 512)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-1, 64, 4096).astype(np.int32)).to(dev)
+    with torch.cuda.device(dev):
+        got = ops.moe_gather(x, idx)
+        torch.cuda.synchronize(dev)
+    assert torch.equal(got, mg.moe_gather_plain(x, idx))

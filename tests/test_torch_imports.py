@@ -25,8 +25,19 @@ def _imported_roots(path: Path):
             yield str(node.args[0].value).split(".")[0]
 
 
+# modules whose names the checks below must cover (the data-parallel
+# layer, the resolver and the sweep runner came last)
+NAMED = ("parallel/__init__.py", "parallel/mesh.py", "parallel/executor.py",
+         "sharding/__init__.py", "sharding/resolver.py", "study/sweep.py")
+
+
 def test_port_files_exist():
     assert len(PORT_FILES) > 20 and all(p.exists() for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("name", NAMED)
+def test_named_modules_are_checked(name):
+    assert ROOT / "src" / "repro_torch" / name in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -481,6 +481,82 @@ def test_engine_counts_first_call_of_a_key_as_a_miss():
     assert torch.equal(first[0], again[0])
 
 
+def _registry_change_counts(pkg, change):
+    """``engine.jit_miss`` / ``jit_hit`` over two ``dense`` calls of one
+    key, ``change(engine, neuron)``, and one more call, in the reference
+    (``pkg="ref"``) or the port."""
+    if pkg == "ref":
+        from repro.core import neuron as neu
+
+        eng, o = jengine, jobs
+    else:
+        from repro_torch.core import neuron as neu
+
+        eng, o = engine, obs
+    params, th = dyadic_net(SPEC, HW, C)
+    imgs = np.random.default_rng(2).random((3, HW, HW, C)).astype(np.float32)
+    cfg = eng.SNNConfig(**_cfg_kw())
+    if pkg == "ref":
+        params = [{k: jnp.asarray(v) for k, v in p.items()} for p in params]
+        th, imgs = [jnp.asarray(t) for t in th], jnp.asarray(imgs)
+
+    def call():
+        if pkg == "ref":
+            eng.infer_batch(params, th, cfg, imgs, backend="dense")
+        else:
+            eng.infer_batch(params, th, cfg, imgs, backend="dense",
+                            device="cpu")
+
+    eng._jit_seen.clear()
+    o.enable()
+    try:
+        call()
+        call()
+        change(eng, neu)
+        call()
+        counters = o.metrics_snapshot()["counters"]
+    finally:
+        o.disable()
+        o.reset()
+        eng._BACKENDS.pop("probe_x", None)
+        neu.unregister_neuron_model("probe_c5")
+    return counters.get("engine.jit_miss", 0), counters.get("engine.jit_hit", 0)
+
+
+def _new_backend(eng, neu):
+    eng.register_backend("probe_x", eng.get_backend("dense"), overwrite=True)
+
+
+def _same_mode_again(eng, neu):
+    m = neu.get_neuron_model("mttfs_cont")
+    neu.register_neuron_model("mttfs_cont", m.fire,
+                              pool_latch_once=m.pool_latch_once,
+                              overwrite=True)
+
+
+def _probe_mode_removed(eng, neu):
+    neu.register_neuron_model("probe_c5", neu.get_neuron_model("mttfs").fire)
+    neu.unregister_neuron_model("probe_c5")
+
+
+def _absent_mode_removed(eng, neu):
+    neu.unregister_neuron_model("probe_c5_absent")   # no-op: no hooks
+
+
+@pytest.mark.parametrize("change,want", [
+    (_new_backend, (2, 1)), (_same_mode_again, (2, 1)),
+    (_probe_mode_removed, (2, 1)), (_absent_mode_removed, (1, 2))],
+    ids=["register_backend", "register_neuron_model",
+         "unregister_neuron_model", "unregister_absent"])
+def test_registry_change_restarts_first_call_tracking(change, want):
+    """A registry change (a backend registered over, a neuron mode
+    re-registered, a mode removed) makes the next call of a key a first
+    call again, in both packages alike; removing an absent mode changes
+    nothing."""
+    assert _registry_change_counts("ref", change) == want
+    assert _registry_change_counts("port", change) == want
+
+
 def test_study_cache_counts_tiers_and_spans_builds(tmp_path):
     from repro_torch.study import StudyCache
 
