@@ -197,6 +197,17 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    (``paper_grid(direct=True, datasets=("mnist",), pricing=
    QUICK_PRICING)``) with its pairing section. Printed: seconds a cell
    (p50, p95, max), stage executions, the grid's seconds and first rows.
+14. audit  — run right after the build: the port's contract checker
+   (``repro_torch.audit``) with its traced layer on the card — every
+   backend's plan, queue_sparse's pieces, direct training, the int8 paths
+   and the B1/B3/B4 wrappers recorded with their kernel launches, the
+   recompilation harness and its graph-capture half (a second warmup
+   leaves ``compile_count`` flat; each captured graph's launches equal one
+   eager call's) — with no finding outside ``audit/baseline.json``; then
+   each kernel's ``smem_blocks`` against the dynamic shared memory its
+   compiled launcher requests (the ``*_smem`` queries) at every paper
+   geometry and at C3's shapes. One line: findings by rule, baselined,
+   smem pairs checked, the flatness result.
 
 Output: human-readable lines, then a JSON ``{"kernels": [...]}`` line, then
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
@@ -402,6 +413,53 @@ def stage_inputs(params, ths, cfg, images):
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
+
+def phase_audit():
+    """[audit]: the contract checker's traced layer on the card, the
+    kernels' shared memory Python against C, graph-capture flatness."""
+    import torch
+
+    from repro_torch.audit import cli, smem
+
+    t0 = time.perf_counter()
+    report = {}
+    res = cli.run(str(ROOT), device="cuda", report=report)
+    check(not res.fresh, "audit: findings outside the baseline on the card: "
+          + "; ".join(f.render() for f in res.fresh))
+    check(not res.stale, f"audit: stale baseline entries {res.stale}")
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    pairs = smem.compare_launchers(
+        smem.launcher_cases(C3_GATHER + (C3_W8,), C3_B5), sm_count)
+    bad = [r for r in pairs if not r["equal"]]
+    check(pairs and not bad, f"audit: smem_blocks != the launcher's bytes in "
+          f"{len(bad)} of {len(pairs)} cases, e.g. {bad[:2]}")
+    graphs = report["graphs"]
+    check(graphs and all(r["captured"] == r["eager"] for r in graphs),
+          "audit: a captured graph's launches differ from the eager call's")
+    serve = {r["module"].split(".")[-1] + (f"[{r['launch']}]" if r["launch"]
+                                           else ""): r["python"]
+             for r in pairs if r["geometry"].get("H") == 32
+             and r["geometry"].get("C_out") == 32
+             and r["geometry"].get("depth") == DEPTH}
+    launched = {k: v["launches"] for k, v in report["traces"].items()
+                if v["launches"]}
+    seconds = time.perf_counter() - t0
+    log(f"[audit] findings by rule {res.by_rule()} (device cuda), "
+        f"{len(res.baselined)} baselined, 0 fresh, 0 stale | smem_blocks == "
+        f"the compiled launcher's bytes in {len(pairs)} (kernel, launch, "
+        f"geometry) pairs: every paper geometry and C3's shapes | graph "
+        f"capture: {len(graphs)} (backend, bucket) plans, compile_count flat "
+        f"over a second warmup, captured launches == eager in all | "
+        f"{seconds:.1f} s")
+    log(f"[audit]   cross-batch reductions by trace "
+        f"{ {k: v['cross_batch'] for k, v in report['traces'].items()} }")
+    log(f"[audit]   kernel launches in the traces {launched}; smem bytes a "
+        f"block at the CIFAR-10 serve shapes (conv1, 32x32, C_out 32) "
+        f"{serve}")
+    return dict(by_rule=res.by_rule(), baselined=len(res.baselined),
+                fresh=0, traces=report["traces"], graphs=graphs,
+                smem_pairs=len(pairs), smem_serve=serve, seconds=seconds)
+
 
 def phase_device():
     import torch
@@ -2940,6 +2998,7 @@ def main(argv=None) -> int:
     device = resolve_device("cuda")
     kind, smi_line = phase_device()
     build = phase_build()
+    audit = None if args.only == "parallel" else phase_audit()
 
     params = init_params(torch.Generator().manual_seed(SEED), SPEC, HW, C_IN,
                          device=device)
@@ -3091,7 +3150,7 @@ def main(argv=None) -> int:
                    mask_contract=mask, sparse=sparse, word=word,
                    kernels=kernels, profile=profile, study=study,
                    direct=direct, obs=traced, fleet=replicas,
-                   parallel=sharded, sweep=grid,
+                   parallel=sharded, sweep=grid, audit=audit,
                    seconds=time.perf_counter() - t_all)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

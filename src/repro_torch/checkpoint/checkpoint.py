@@ -80,6 +80,7 @@ def _unflatten_like(template, flat, prefix="", leaf=_restore_leaf):
 
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        # audit: allow[host-sync] a checkpoint writes host bytes
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 

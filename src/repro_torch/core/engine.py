@@ -72,6 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import obs
+from ..audit.contracts import BackendContract, QuantContract
 from ..device import resolve_device
 from . import encoding
 from .aeq import (aeq_from_raster_batch, kernel_span, phase_occupancy,
@@ -598,6 +599,16 @@ class SparseQueueBackend:
     the active-row count is B3's ragged grid (``n_rows``), on the CPU the
     bucketed event total is the plain version's list (``e_cap``).
 
+    A stage is three pieces, as the reference's three jitted ones
+    (``_sparse_stats_fn``, ``_sparse_layer_fn``, ``_sparse_analog_fn``):
+    :func:`_sparse_stats` (the stats and the gate's two device scalars,
+    the only two cross-batch reductions of the backend), the gate
+    :func:`_sparse_gate` (the host pulls) and :func:`_sparse_event_layer`;
+    the analog first layer is :func:`_analog_layer`. ``gate_keys`` holds
+    every (stage, ``e_cap``, ``n_rows``) the gate has produced: the
+    counterpart of the reference's per-bucket jit caches, which the audit's
+    recompilation harness holds flat on identical inputs.
+
     ``cfg.weight_bits`` selects the int-quantized accumulate (int8 weights,
     exact integer sums, one fp32 dequant) in the conv stages and the shared
     output head. Logits and stats are pinned bit-exact against
@@ -608,28 +619,53 @@ class SparseQueueBackend:
     supports_batch = True
     host_dispatch = True
 
-    def conv_layer_batch(self, cp, w, b, vth, cfg, raster, analog):
-        from ..kernels.spike_sparse import event_bucket, max_kept_events
+    def __init__(self):
+        self.gate_keys: set = set()
 
+    def conv_layer_batch(self, cp, w, b, vth, cfg, raster, analog):
         if raster is None:
             return _analog_layer(cp, cfg, analog, w, b, vth)
-        occ, tot, capped, ev, ovf, ops = _queue_stats(cp, cfg.depth, raster)
-        total = capped.sum()                       # the occupancy gate ...
-        n_act = (tot > 0).flatten(2).any(-1).sum()  # ... and active (b, t)
-        N = raster.shape[0] * cfg.T
-        K2, P = occ.shape[-2:]
-        # audit: allow[host-sync] the occupancy gate: one scalar per layer
-        # sizes the event list
-        total_host = total.item()
-        # audit: allow[host-sync] same gate: the active-row count sizes the
-        # ragged grid
-        n_rows = n_act.item()
-        e_cap = event_bucket(
-            total_host, max_kept_events((N, cp.in_c, K2, P), cfg.depth))
-        out = _event_layer(cp, cfg, occ, w, b, vth, impl="sparse",
-                           e_cap=e_cap, n_rows=n_rows,
-                           weight_bits=cfg.weight_bits)
+        occ, ev, ovf, ops, total, n_act = _sparse_stats(cp, cfg.depth, raster)
+        e_cap, n_rows = _sparse_gate(cfg, occ.shape, total, n_act)
+        self.gate_keys.add((cp, cfg, e_cap, n_rows))
+        out = _sparse_event_layer(cp, cfg, occ, w, b, vth, e_cap, n_rows)
         return out, _event_stats(out, ev, ovf, ops)
+
+
+def _sparse_stats(cp: ConvPlan, depth: int, raster):
+    """One stage's queue stats plus the gate's two device scalars: the
+    surviving-event total and the count of active (sample, step) rows —
+    the backend's only two reductions over the batch (declared in
+    :data:`BACKEND_CONTRACTS`); they size the work, never the numbers."""
+    occ, tot, capped, ev, ovf, ops = _queue_stats(cp, depth, raster)
+    total = capped.sum()                       # the occupancy gate ...
+    n_act = (tot > 0).flatten(2).any(-1).sum()  # ... and active (b, t)
+    return occ, ev, ovf, ops, total, n_act
+
+
+def _sparse_gate(cfg: SNNConfig, occ_shape, total, n_act):
+    """The occupancy gate: ``(e_cap, n_rows)`` of a stage from its two
+    device scalars, pulled to the host."""
+    from ..kernels.spike_sparse import event_bucket, max_kept_events
+
+    B, T, C, K2, P = occ_shape
+    # audit: allow[host-sync] the occupancy gate: one scalar per layer
+    # sizes the event list
+    total_host = total.item()
+    # audit: allow[host-sync] the occupancy gate: the active-row count
+    # sizes the ragged grid
+    n_rows = n_act.item()
+    e_cap = event_bucket(total_host,
+                         max_kept_events((B * T, C, K2, P), cfg.depth))
+    return e_cap, n_rows
+
+
+def _sparse_event_layer(cp: ConvPlan, cfg: SNNConfig, occ, w, b, vth, e_cap,
+                        n_rows):
+    """The sparse accumulate of a stage's (B, T, C, K2, P) occupancy at the
+    gate's sizes, then the time loop."""
+    return _event_layer(cp, cfg, occ, w, b, vth, impl="sparse", e_cap=e_cap,
+                        n_rows=n_rows, weight_bits=cfg.weight_bits)
 
 
 _BACKENDS: dict[str, object] = {}
@@ -968,6 +1004,29 @@ register_backend("queue", QueueBackend(accum="word"))
 register_backend("queue_pallas", QueueBackend())
 register_backend("queue_ref", QueueBackend(accum="ref"))
 register_backend("queue_sparse", SparseQueueBackend())
+
+# Declared trace intent per backend, verified by ``python -m
+# repro_torch.audit`` (the reference's values). ``cross_batch_reductions``
+# is the mask contract stated structurally: the number of reductions over
+# the batch axis the backend's plan walk may contain — zero for every
+# traced backend (padded rows must be bit-inert), and exactly two for the
+# sparse backend's occupancy-gate stats (the global event total and the
+# active-row count, both feeding the gate, never the numerics). A backend
+# registered without a contract is an audit error.
+BACKEND_CONTRACTS: dict[str, BackendContract] = {
+    # dense additionally owns the differentiable training walk
+    # (``train_forward``); its loss forward reduces over the batch exactly
+    # twice by design — the batch-mean classification loss and the
+    # batch-mean spike-rate regularizer (``audit.probe.trace_train_step``)
+    "dense": BackendContract(name="dense", train_loss_reductions=2),
+    "dense_unrolled": BackendContract(name="dense_unrolled"),
+    "queue": BackendContract(name="queue"),
+    "queue_pallas": BackendContract(name="queue_pallas"),
+    "queue_ref": BackendContract(name="queue_ref", quant=QuantContract()),
+    "queue_sparse": BackendContract(
+        name="queue_sparse", cross_batch_reductions=2, host_dispatch=True,
+        quant=QuantContract(), allowed_host_syncs=("occupancy-gate",)),
+}
 
 # a neuron or surrogate registry change restarts first-call tracking and
 # drops the compiled plans, as a backend registration does

@@ -62,6 +62,7 @@ def params_from_numpy(params_np, thresholds, device=None):
 def params_to_numpy(params):
     """The inverse bridge: the port's parameter list -> the reference's
     list of per-layer dicts of float32 numpy arrays (host copies)."""
+    # audit: allow[host-sync] the bridge's purpose: host copies
     return [{k: v.detach().cpu().numpy() for k, v in layer.items()}
             for layer in params]
 

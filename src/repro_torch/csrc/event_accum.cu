@@ -202,6 +202,25 @@ int gather(const uint32_t* bits, const int32_t* mult, const int32_t* flags,
   return (int)cudaGetLastError();
 }
 
+// bytes of one (n, c) cell's decoded bits
+inline size_t decode_cell_bytes(int K, int n_win) {
+  return sizeof(uint32_t) * K * K * (((size_t)n_win * n_win + 31) / 32);
+}
+
+// cells (warps) a decode block holds: as many as keep it within 48 KiB
+inline int decode_warps(size_t cell_bytes) {
+  return (int)std::max<size_t>(1,
+                               std::min<size_t>(kWarps, 49152 / cell_bytes));
+}
+
+// whether the gather takes kFewCells-cell blocks: 8-cell ones would not
+// give every SM a block
+inline bool few_cells(long long n_tasks, int C_out) {
+  const long long blocks =
+      (n_tasks + kWarps - 1) / kWarps * ((C_out + kTile - 1) / kTile);
+  return blocks < sm_count();
+}
+
 // The decode of K (KC = K, or 0 for a K without its own kernel): a warp per
 // (n, c) cell, as many warps a block as keep the scratch within 48 KiB,
 // one warp (opted in past 48 KiB) where one cell's words need more.
@@ -211,12 +230,10 @@ int decode(int K, const void* words, const void* counts, uint32_t* bits,
            long long counts_stride, int C_in, int D, int n_win, int nbits,
            cudaStream_t stream) {
   const int n_cells = N * C_in;
-  const size_t cell_bytes =
-      sizeof(uint32_t) * K * K * (((size_t)n_win * n_win + 31) / 32);
+  const size_t cell_bytes = decode_cell_bytes(K, n_win);
   if (cell_bytes > (size_t)spike_accum::kSmemMax)
     return (int)cudaErrorInvalidValue;
-  const int warps =
-      (int)std::max<size_t>(1, std::min<size_t>(kWarps, 49152 / cell_bytes));
+  const int warps = decode_warps(cell_bytes);
   if (warps * cell_bytes > 49152) {
     const int err = spike_accum::opt_in_smem<event_accum_decode_kernel<KC>>();
     if (err != 0) return err;
@@ -244,12 +261,10 @@ int launch(const void* words, const void* counts, const void* w,
   if (err != 0) return err;
   const long long n_tasks =
       (long long)N * ((H + K - 1) / K) * ((W + K - 1) / K);
-  const long long blocks =
-      (n_tasks + kWarps - 1) / kWarps * ((C_out + kTile - 1) / kTile);
   const float* wf = static_cast<const float*>(w);
   const T* vi = static_cast<const T*>(v_in);
   T* vo = static_cast<T*>(v_out);
-  if (blocks < sm_count())
+  if (few_cells(n_tasks, C_out))
     return gather<K, T, kFewCells, true>(b, mu, fl, wf, vi, vo, n_tasks,
                                          C_in, n_win, H, W, C_out, stream);
   return gather<K, T, kWarps, false>(b, mu, fl, wf, vi, vo, n_tasks, C_in,
@@ -322,6 +337,23 @@ int event_accum(const void* words, const void* counts, const void* w,
   return launch_k<float>(K, words, counts, w, v_in, v_out, bits, mult, flags,
                          N, words_stride, counts_stride, C_in, D, n_win,
                          nbits, H, W, C_out, s);
+}
+
+// The dynamic shared memory event_accum requests per block of its decode
+// and of its gather at this geometry, on the current card (the gather's
+// cells depend on its SM count): kernels/event_accum.py's smem_blocks adds
+// up the same numbers. Returns cudaErrorInvalidValue for an even K.
+int event_accum_smem(int N, int K, int n_win, int H, int W, int C_out,
+                     long long* decode_bytes, long long* gather_bytes) {
+  if (K < 1 || K % 2 == 0) return (int)cudaErrorInvalidValue;
+  const size_t cell_bytes = decode_cell_bytes(K, n_win);
+  *decode_bytes = (long long)(decode_warps(cell_bytes) * cell_bytes);
+  const long long n_tasks =
+      (long long)N * ((H + K - 1) / K) * ((W + K - 1) / K);
+  *gather_bytes = few_cells(n_tasks, C_out)
+                      ? spike_accum::gather_smem_k<kFewCells>(K, n_win, H, W)
+                      : spike_accum::gather_smem_k<kWarps>(K, n_win, H, W);
+  return 0;
 }
 
 }  // extern "C"

@@ -106,7 +106,12 @@ namespace {
 
 constexpr int kWarps = 8;         // warps per block, one window cell each
 constexpr int kTile = 32;         // output channels per block, one per lane
-constexpr int kSmemMax = 232448;  // shared memory one Hopper block may use
+// shared memory one Hopper block may use: one number for the Python side
+// and every source, passed by kernels/_cuda.py from audit/contracts.py
+#ifndef REPRO_SMEM_MAX
+#error "build with -DREPRO_SMEM_MAX=<bytes> (kernels/_cuda.py passes it)"
+#endif
+constexpr int kSmemMax = REPRO_SMEM_MAX;
 
 // input channels per staged chunk: the weights of two chunks must fit
 template <int K>
@@ -159,6 +164,21 @@ inline size_t gather_smem(int n_win, int H, int W) {
   return 4 * (2 * (size_t)K2 * CC * kTile
               + 2 * (size_t)rows_spanned(Cells, cells_x * cells_y) * CC
                     * cell_words(K2, SW));
+}
+
+// The dynamic shared memory launch_gather requests for a gather block of K
+// over Cells window cells: 0 for the rolled gather (it stages nothing),
+// -1 for an even K. kernels/spike_pipeline.py's smem_blocks adds up the
+// same number; the *_smem queries of the sources return this one.
+template <int Cells = kWarps>
+inline long long gather_smem_k(int K, int n_win, int H, int W) {
+  switch (K) {
+    case 1: return (long long)gather_smem<1, Cells>(n_win, H, W);
+    case 3: return (long long)gather_smem<3, Cells>(n_win, H, W);
+    case 5: return (long long)gather_smem<5, Cells>(n_win, H, W);
+    case 7: return (long long)gather_smem<7, Cells>(n_win, H, W);
+    default: return (K < 1 || K % 2 == 0) ? -1 : 0;
+  }
 }
 
 // warps of a gather block: one per window cell, or K with Split

@@ -41,7 +41,10 @@ namespace {
 
 constexpr int kThreads = 256;      // most threads a block
 constexpr int kTileWords = 8192;   // words a block stages (32 KiB)
-constexpr int kSmemMax = 232448;   // shared memory one Hopper block may use
+#ifndef REPRO_SMEM_MAX
+#error "build with -DREPRO_SMEM_MAX=<bytes> (kernels/_cuda.py passes it)"
+#endif
+constexpr int kSmemMax = REPRO_SMEM_MAX;  // shared memory one block may use
 
 template <int G, bool Staged>
 __global__ void __launch_bounds__(kThreads)
@@ -107,12 +110,28 @@ spike_compact_kernel(const int32_t* __restrict__ occ,
     dst[i] = tile[mis + i];
 }
 
+// rows a block of G lanes a row holds, and the bytes their words take in
+// shared memory (whole 16-byte stores, plus one for the alignment shift)
+inline int tile_rows(int G, int depth) {
+  return max(1, min(kThreads / G, kTileWords / depth));
+}
+inline size_t tile_smem(int rows, int depth) {
+  return 4 * (((size_t)rows * depth + 3) / 4 * 4 + 4);
+}
+
+// lanes a row for P positions: the next power of two, at most a warp
+inline int row_lanes(int P) {
+  int g = 1;
+  while (g < P && g < 32) g <<= 1;
+  return g;
+}
+
 template <int G>
 int launch(const void* occ, void* words, void* counts, int R, int P,
            int n_win, int bits, int depth, int invalid, cudaStream_t s) {
-  const int rows = max(1, min(kThreads / G, kTileWords / depth));
+  const int rows = tile_rows(G, depth);
   const int threads = (rows * G + 31) / 32 * 32;
-  const size_t smem = 4 * (((size_t)rows * depth + 3) / 4 * 4 + 4);
+  const size_t smem = tile_smem(rows, depth);
   const int blocks = (R + rows - 1) / rows;
   auto args = [&](auto kernel, size_t bytes) {
     kernel<<<blocks, threads, bytes, s>>>(
@@ -151,6 +170,16 @@ int spike_compact(const void* occ, void* words, void* counts, int R, int P,
   if (P <= 8) return launch<8>(occ, words, counts, R, P, n_win, bits, depth, invalid, s);
   if (P <= 16) return launch<16>(occ, words, counts, R, P, n_win, bits, depth, invalid, s);
   return launch<32>(occ, words, counts, R, P, n_win, bits, depth, invalid, s);
+}
+
+// The dynamic shared memory spike_compact requests per block for rows of
+// P positions at this depth (0 where a tile does not fit and rows are
+// written in place): kernels/spike_compact.py's smem_blocks adds up the
+// same number.
+long long spike_compact_smem(int P, int depth) {
+  if (P < 1 || depth < 1) return -1;
+  const size_t smem = tile_smem(tile_rows(row_lanes(P), depth), depth);
+  return smem > (size_t)kSmemMax ? 0 : (long long)smem;
 }
 
 }  // extern "C"

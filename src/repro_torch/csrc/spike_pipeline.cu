@@ -98,4 +98,10 @@ int fused_spike_accum(const void* occ, const void* w, void* scratch,
   }
 }
 
+// The dynamic shared memory fused_spike_accum requests per gather block at
+// this geometry (spike_accum.cuh's gather_smem_k).
+long long fused_spike_accum_smem(int K, int n_win, int H, int W) {
+  return spike_accum::gather_smem_k(K, n_win, H, W);
+}
+
 }  // extern "C"

@@ -175,4 +175,10 @@ int fused_spike_accum_sparse(const void* occ, const void* w,
                               n_rows, C_in, n_win, H, W, C_out, s);
 }
 
+// The dynamic shared memory fused_spike_accum_sparse requests per gather
+// block at this geometry (spike_accum.cuh's gather_smem_k).
+long long fused_spike_accum_sparse_smem(int K, int n_win, int H, int W) {
+  return spike_accum::gather_smem_k(K, n_win, H, W);
+}
+
 }  // extern "C"

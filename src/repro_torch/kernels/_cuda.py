@@ -27,13 +27,16 @@ from pathlib import Path
 
 import torch
 
+from ..audit.contracts import SMEM_BUDGET_BYTES
 from ..core import compile_cache
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("spike_pipeline", "quant_matmul", "spike_sparse", "event_accum",
            "spike_compact", "moe_gather")
+# the sources read one block's shared-memory budget from the define
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DREPRO_SMEM_MAX={SMEM_BUDGET_BYTES}")
 
 launch_counts = {"fused_spike_accum": 0, "quant_matmul": 0,
                  "fused_spike_accum_sparse": 0, "event_accum": 0,
@@ -117,15 +120,17 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def kernel_fn(name: str, symbol: str, argtypes: tuple):
-    """The C launcher ``symbol`` of ``csrc/<name>.cu``, typed once.
+def kernel_fn(name: str, symbol: str, argtypes: tuple,
+              restype=ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu``, typed once.
 
     Pointers and the stream must be ``c_void_p``: ctypes would otherwise
-    pass them as 32-bit ints. Every launcher returns a ``cudaError_t``.
+    pass them as 32-bit ints. Every launcher returns a ``cudaError_t``; a
+    query (the ``*_smem`` functions) returns its number as ``restype``.
     """
     fn = getattr(load(name), symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

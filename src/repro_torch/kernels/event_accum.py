@@ -40,8 +40,55 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..audit.contracts import KernelContract
 from . import _cuda
-from .spike_pipeline import _SMEM_MAX, check_gather_fits
+from . import spike_pipeline
+from .spike_pipeline import GATHER_CELLS, _SMEM_MAX, check_gather_fits
+
+# Declared intent, verified by ``python -m repro_torch.audit``: fp32
+# accumulate (a bf16 membrane rounds each add, the sums stay fp32), no host
+# syncs, and the shared memory of both launches (:func:`smem_blocks`)
+# within one block's budget at every paper geometry.
+CONTRACT = KernelContract(name="event_accum", module=__name__,
+                          accum_dtype="float32")
+
+#: the two launches of a call, each with its own blocks
+SMEM_LAUNCHES = ("decode", "gather")
+FEW_CELLS = 2           # window cells a gather block covers on small grids
+_DECODE_SMEM = 49152    # the decode's blocks stay within the 48 KiB default
+
+
+def gather_cells(N, K, H, W, C_out, sm_count) -> int:
+    """Window cells a gather block of ``csrc/event_accum.cu`` covers: 2
+    when 8-cell blocks would not give every SM a block, else 8."""
+    tasks = N * -(-H // K) * -(-W // K)
+    blocks = -(-tasks // GATHER_CELLS) * -(-C_out // 32)
+    return FEW_CELLS if blocks < sm_count else GATHER_CELLS
+
+
+def smem_blocks(*, K, n_win, H, W, launch="gather", cells=GATHER_CELLS,
+                **_unused):
+    """The dynamic shared memory a block of one launch requests, as data,
+    for ``audit.smem`` (``csrc/event_accum.cu``'s ``event_accum_smem``
+    returns the bytes its launcher passes):
+
+    - ``"decode"``: a warp per (n, c) cell, each holding the cell's decoded
+      bits (K², ceil(n_win² / 32)) words; as many warps a block as stay
+      within 48 KiB, one (opted in past it) where a cell needs more;
+    - ``"gather"``: B1's gather blocks (``spike_pipeline.smem_blocks``),
+      over ``cells`` window cells (:func:`gather_cells`: 2 on grids too
+      small to fill the card, which stages less); the rolled gather of a
+      K outside ``spike_pipeline.UNROLLED_K`` stages nothing.
+    """
+    if launch == "decode":
+        cell = (K * K, -(-n_win * n_win // 32))
+        warps = max(1, min(GATHER_CELLS, _DECODE_SMEM // (4 * cell[0]
+                                                           * cell[1])))
+        return [("decoded_bits", (warps, *cell), 4, False)]
+    if launch != "gather":
+        raise ValueError(f"launch is 'decode' or 'gather', got {launch!r}")
+    return spike_pipeline.smem_blocks(K=K, n_win=n_win, H=H, W=W,
+                                      cells=cells)
 
 
 def _decode(words, counts, n_win, bits):
@@ -221,3 +268,16 @@ def event_accum_cuda(words, counts, weights, v_mem, *, K, n_win, bits,
              int(v_mem.dtype == torch.bfloat16), _cuda.stream_ptr(dev))
     _cuda.check_launch(err, "event_accum")
     return out
+
+
+def launch_smem(*, N, K, n_win, H, W, C_out, **_unused) -> dict:
+    """The dynamic shared memory the compiled launcher requests per block
+    of each launch (``csrc/event_accum.cu``'s ``event_accum_smem``; the
+    gather's cells chosen on the current card), by launch name."""
+    fn = _cuda.kernel_fn("event_accum", "event_accum_smem",
+                         (ctypes.c_int,) * 6
+                         + (ctypes.POINTER(ctypes.c_longlong),) * 2)
+    decode, gather = ctypes.c_longlong(), ctypes.c_longlong()
+    _cuda.check_launch(fn(N, K, n_win, H, W, C_out, ctypes.byref(decode),
+                          ctypes.byref(gather)), "event_accum_smem")
+    return {"decode": decode.value, "gather": gather.value}

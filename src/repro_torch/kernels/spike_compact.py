@@ -23,8 +23,35 @@ import ctypes
 
 import torch
 
+from ..audit.contracts import SMEM_BUDGET_BYTES, KernelContract
 from ..core.aeq import _scatter_rows
 from . import _cuda
+
+# Declared intent, verified by ``python -m repro_torch.audit``: integer
+# work only (int32 words and counts), no host syncs, and the row tile of
+# :func:`smem_blocks` within one block's budget at every paper geometry.
+CONTRACT = KernelContract(name="spike_compact", module=__name__,
+                          accum_dtype="int32")
+
+_THREADS = 256          # most threads a block (csrc kThreads)
+_TILE_WORDS = 8192      # words a block stages (csrc kTileWords, 32 KiB)
+
+
+def smem_blocks(*, n_win, depth, **_unused):
+    """The dynamic shared memory a block of ``csrc/spike_compact.cu``
+    requests, as data, for ``audit.smem``: its rows' words, rounded up to
+    whole 16-byte stores plus one store of slack for the first row's
+    alignment. A row of ``min(32, next power of two >= P)`` lanes; as many
+    rows a block as fit ``_THREADS`` lanes and ``_TILE_WORDS`` words (at
+    least one); a tile past one block's budget is not staged (the rows are
+    written in place)."""
+    P = n_win * n_win
+    lanes = min(32, 1 << max(P - 1, 0).bit_length())
+    rows = max(1, min(_THREADS // lanes, _TILE_WORDS // depth))
+    words = -(-rows * depth // 4) * 4 + 4
+    if 4 * words > SMEM_BUDGET_BYTES:
+        return []
+    return [("row_tile", (words,), 4, False)]
 
 
 def spike_compact_plain(occ, *, n_win, bits, depth, invalid):
@@ -69,3 +96,11 @@ def spike_compact_cuda(occ, *, n_win, bits, depth, invalid):
              n_win, bits, depth, invalid, _cuda.stream_ptr(occ.device))
     _cuda.check_launch(err, "spike_compact")
     return words, counts
+
+
+def launch_smem(*, n_win, depth, **_unused) -> int:
+    """The dynamic shared memory the compiled launcher requests per block
+    (``csrc/spike_compact.cu``'s ``spike_compact_smem``)."""
+    fn = _cuda.kernel_fn("spike_compact", "spike_compact_smem",
+                         (ctypes.c_int,) * 2, ctypes.c_longlong)
+    return fn(n_win * n_win, depth)

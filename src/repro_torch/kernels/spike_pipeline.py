@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ..audit.contracts import SMEM_BUDGET_BYTES, KernelContract, block_bytes
 from ..core.snn_layers import conv_same_nhwc
 from . import _cuda
 
@@ -38,10 +39,17 @@ def fused_spike_accum_plain(occ, weights, *, K, n_win, depth, H, W):
     return conv_same_nhwc(m[:, :H, :W, :], weights)
 
 
-_SMEM_MAX = 232_448    # shared memory one Hopper block may use
+_SMEM_MAX = SMEM_BUDGET_BYTES    # shared memory one Hopper block may use
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
              + (ctypes.c_void_p,))
 UNROLLED_K = (1, 3, 5, 7)   # K with an unrolled gather; others run rolled
+GATHER_CELLS = 8            # window cells a gather block covers (kWarps)
+
+# Declared intent, verified by ``python -m repro_torch.audit``: fp32
+# accumulate (no quant path here), no host syncs, and the shared memory of
+# :func:`smem_blocks` within one block's budget at every paper geometry.
+CONTRACT = KernelContract(name="fused_spike_accum", module=__name__,
+                          accum_dtype="float32")
 
 
 def kept_bit_words(occ_shape) -> int:
@@ -50,15 +58,8 @@ def kept_bit_words(occ_shape) -> int:
     return N * C_in * K2 * (-(-P // 32))
 
 
-def gather_smem(K, n_win, H, W):
-    """Bytes of shared memory a block of the unrolled gather
-    (``csrc/spike_accum.cuh``, ``gather_smem``, the same number) stages:
-    two buffers of one chunk's weights (K², CC, 32) and of its rows' kept
-    bits, ``SW`` words per (row, channel, phase) queue — the window rows
-    that the block's 8 consecutive window cells of a row span, plus one row
-    of halo on each side — so it grows with the map's width, not its area.
-    (B4's 2-cell blocks for small grids stage less.)"""
-    cells = 8
+def _gather_blocks(K, n_win, H, W, cells):
+    """The staged buffers of the unrolled gather's block, as data."""
     K2 = K * K
     cc = 32 if K <= 3 else (16 if K == 5 else 8)
     nw = -(-n_win * n_win // 32)
@@ -66,7 +67,31 @@ def gather_smem(K, n_win, H, W):
     rows = (cells + cells_x * cells_y - 2) // (cells_x * cells_y) + 1
     win_rows = min((cells + cells_x - 2) // cells_x + 1, cells_y)
     sw = min(nw, ((win_rows + 2) * n_win + 31) // 32 + 1)
-    return 4 * (2 * K2 * cc * 32 + 2 * rows * cc * ((K2 * sw) | 1))
+    return [("w_chunk", (K2, cc, 32), 4, True),
+            ("kept_bits", (rows, cc, (K2 * sw) | 1), 4, True)]
+
+
+def smem_blocks(*, K, n_win, H, W, cells=GATHER_CELLS, **_unused):
+    """The dynamic shared memory a gather block requests, as data, for
+    ``audit.smem``: ``(name, shape, bytes per element, double_buffered)``.
+
+    Mirrors ``csrc/spike_accum.cuh``'s ``gather_smem<K, Cells>`` (its
+    ``launch_smem`` query returns the bytes the launcher passes): two
+    buffers of one chunk's weights (K², CC, 32) and of its rows' kept bits,
+    ``SW`` words per (row, channel, phase) queue — the window rows that the
+    block's ``cells`` consecutive window cells of a row span, plus one row
+    of halo on each side — so it grows with the map's width, not its area.
+    A K outside :data:`UNROLLED_K` runs the rolled gather, which stages
+    nothing. (B4's 2-cell blocks for small grids stage less.)"""
+    if K not in UNROLLED_K:
+        return []
+    return _gather_blocks(K, n_win, H, W, cells)
+
+
+def gather_smem(K, n_win, H, W, cells=GATHER_CELLS):
+    """Bytes of shared memory a block of the unrolled gather stages: the
+    total of its :func:`smem_blocks` (for any K, as if it were unrolled)."""
+    return block_bytes(_gather_blocks(K, n_win, H, W, cells))
 
 
 def check_gather_fits(K, n_win, H, W):
@@ -116,3 +141,13 @@ def fused_spike_accum_cuda(occ, weights, *, K, n_win, depth, H, W):
              _cuda.stream_ptr(occ.device))
     _cuda.check_launch(err, "fused_spike_accum")
     return out
+
+
+def launch_smem(*, K, n_win, H, W, **_unused) -> int:
+    """The dynamic shared memory the compiled launcher requests per gather
+    block at this geometry (``csrc/spike_pipeline.cu``'s
+    ``fused_spike_accum_smem``): what ``audit.smem`` holds
+    :func:`smem_blocks` to on the card."""
+    fn = _cuda.kernel_fn("spike_pipeline", "fused_spike_accum_smem",
+                         (ctypes.c_int,) * 4, ctypes.c_longlong)
+    return fn(K, n_win, H, W)

@@ -30,9 +30,31 @@ import ctypes
 
 import torch
 
+from ..audit.contracts import KernelContract, QuantContract
 from ..core.quantization import quantize_symmetric
 from . import _cuda
+from . import spike_pipeline
 from .spike_pipeline import check_gather_fits, kept_bit_words
+
+# Declared intent, verified by ``python -m repro_torch.audit``: with
+# ``weight_bits`` the accumulate is int8 weights -> exact integer sums ->
+# ONE fp32 dequant; the dispatcher's bucket pull is the declared
+# 'occupancy-gate' host sync (marked in engine.py). On the card the int
+# path hands the kernel its weights as fp32 integers while every partial
+# sum is below 2^24 (``int_sums_fit_fp32``) and dequantizes inside the
+# kernel: the audit flags that direct int8 -> fp32 convert, and the port's
+# baseline carries it with that reason.
+CONTRACT = KernelContract(name="fused_spike_accum_sparse", module=__name__,
+                          accum_dtype="int32", quant=QuantContract(),
+                          allowed_host_syncs=("occupancy-gate",))
+
+
+def smem_blocks(**geometry):
+    """The dynamic shared memory a block of B1's gather, which this kernel
+    runs over its first ``n_rows`` rows, requests, as data (see
+    ``spike_pipeline.smem_blocks``); its encode and row-order launches use
+    none."""
+    return spike_pipeline.smem_blocks(**geometry)
 
 
 # ---------------------------------------------------------------------------
@@ -206,3 +228,11 @@ def fused_spike_accum_sparse_cuda(occ, weights, *, K, n_win, depth, H, W,
              quant, _cuda.stream_ptr(dev))
     _cuda.check_launch(err, "fused_spike_accum_sparse")
     return out
+
+
+def launch_smem(*, K, n_win, H, W, **_unused) -> int:
+    """The dynamic shared memory the compiled launcher requests per gather
+    block (``csrc/spike_sparse.cu``'s ``fused_spike_accum_sparse_smem``)."""
+    fn = _cuda.kernel_fn("spike_sparse", "fused_spike_accum_sparse_smem",
+                         (ctypes.c_int,) * 4, ctypes.c_longlong)
+    return fn(K, n_win, H, W)

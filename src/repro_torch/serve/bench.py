@@ -183,6 +183,8 @@ def one_shot_energy(runtime: ServeRuntime, model: str, images) -> np.ndarray:
     _, stats = engine.infer_batch(handle.params, handle.thresholds,
                                   handle.cfg, images, backend=handle.backend,
                                   device=handle.device)
+    # audit: allow[host-sync] the verification's one-shot stats go to the
+    # host pricing, once per check
     record = StatsRecord(*(getattr(stats, f).cpu().numpy()
                            for f in StatsRecord._fields))
     e = price_record(record, input_hw=handle.cfg.input_hw,

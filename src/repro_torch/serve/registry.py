@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..audit.contracts import BackendContract
 from ..core import engine
 from ..device import resolve_device
 from ..kernels import ops
@@ -46,6 +47,17 @@ from ..parallel import mesh_size
 from ..parallel.executor import gather, on_device, replicate
 from .api import ServeError
 from .batching import DEFAULT_BUCKETS
+
+
+# Declared trace intent of the serving layer, verified by ``python -m
+# repro_torch.audit``: the served plans are the engine's batched calls
+# (zero cross-batch reductions — the mask contract is what makes padded
+# buckets safe; on the card the audit's harness holds each captured
+# graph's launches to the eager call's), and the one deliberate host sync
+# is the per-bucket block-until-ready in ``run_bucket`` (latency metering
+# needs the device done before the response timestamp).
+CONTRACT = BackendContract(name="serve",
+                           allowed_host_syncs=("serve-block-until-ready",))
 
 
 def _slice_copies(logits, stats, n_valid: int):
@@ -106,7 +118,7 @@ class GraphPlan:
         """Copy host images in and replay; the static outputs, all rows
         (a later replay overwrites them)."""
         # host images go to the static input through pinned memory
-        np.copyto(self.staging.numpy(), images)
+        self.staging.copy_(torch.from_numpy(images))
         self.images.copy_(self.staging, non_blocking=True)
         self.graph.replay()
         return self.logits, self.stats
@@ -300,8 +312,9 @@ class ModelHandle:
         out = self.plan_for(bucket)(images, n_valid)
         self.replay_count[bucket] += 1
         if self.device.type == "cuda":
-            # audit: allow[host-sync] serve latency metering: the response
-            # timestamp must not be taken before the device is done
+            # audit: allow[host-sync] serve block-until-ready: latency
+            # metering must not timestamp the response before the device
+            # is done
             torch.cuda.synchronize(self.device)
         return out
 

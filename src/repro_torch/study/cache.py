@@ -53,6 +53,8 @@ def _feed(h, obj) -> None:
         h.update(b"]")
     else:  # tensor (any device) / ndarray / numpy scalar
         if isinstance(obj, torch.Tensor):
+            # audit: allow[host-sync] a content key hashes the bytes: once
+            # per stage key
             obj = obj.detach().cpu().numpy()
         a = np.asarray(obj)
         h.update(str(a.dtype).encode())

@@ -1197,3 +1197,28 @@ def test_moe_gather_bulk_path_on_the_last_card(cards):
         got = ops.moe_gather(x, idx)
         torch.cuda.synchronize(dev)
     assert torch.equal(got, mg.moe_gather_plain(x, idx))
+
+
+@pytest.mark.cuda
+def test_audit_on_card(cuda):
+    """The port's contract checker on the card: its traced layer has no
+    finding outside the baseline (the card-only entries are B2's and B3's
+    in-kernel dequants), each kernel's ``smem_blocks`` equals the bytes its
+    compiled launcher requests at every paper geometry and at this file's
+    gather and queue shapes, and every captured graph holds the launches
+    of one eager call and stays captured over a second warmup."""
+    from repro_torch.audit import cli, smem
+
+    report = {}
+    res = cli.run(cli.repo_root(), device="cuda", report=report)
+    assert res.fresh == [], [f.render() for f in res.fresh]
+    assert res.stale == []
+    graphs = report["graphs"]
+    assert graphs and all(r["captured"] == r["eager"] for r in graphs)
+    assert any(sum(r["captured"].values()) for r in graphs)
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gathers = [(hw, c_in, c_out, K, rows, depth)
+               for hw, c_in, c_out, depth, K, rows in B4_GATHER_SHAPES]
+    rows = smem.compare_launchers(smem.launcher_cases(gathers, B5_SHAPES),
+                                  sm_count)
+    assert rows and [r for r in rows if not r["equal"]] == []

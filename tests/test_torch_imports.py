@@ -26,9 +26,13 @@ def _imported_roots(path: Path):
 
 
 # modules whose names the checks below must cover (the data-parallel
-# layer, the resolver and the sweep runner came last)
+# layer, the resolver and the sweep runner, then the contract checker)
 NAMED = ("parallel/__init__.py", "parallel/mesh.py", "parallel/executor.py",
-         "sharding/__init__.py", "sharding/resolver.py", "study/sweep.py")
+         "sharding/__init__.py", "sharding/resolver.py", "study/sweep.py",
+         "audit/__init__.py", "audit/__main__.py", "audit/ast_rules.py",
+         "audit/cli.py", "audit/contracts.py", "audit/findings.py",
+         "audit/gh_summary.py", "audit/harness.py", "audit/probe.py",
+         "audit/reachability.py", "audit/smem.py", "audit/trace_rules.py")
 
 
 def test_port_files_exist():
