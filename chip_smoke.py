@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port of the SNN serving, study and training paths
-on one CUDA card.
+"""Drive the PyTorch/H100 port of the SNN serving, study and training paths,
+and of the LM stack, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -209,6 +209,28 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    geometry and at C3's shapes. One line: findings by rule, baselined,
    smem pairs checked, the flatness result.
 
+15. lm     — run right after the audit: the LM stack (``models/``) with
+   Qwen1.5-MoE-A2.7B's dimensions (``tests/_smoke_archs.py:95-103``,
+   spelled out with the port's ``ArchConfig``), random weights from a
+   CUDA generator. Serving at full width and depth (24 layers, 14.3 G fp32
+   parameters): 4 prompts of 512 tokens from ``TokenStream`` prefilled,
+   then 16 greedy decode steps; every B6 dispatch buffer of a checked
+   prefill and decode held bit for bit against ``moe_gather_plain`` on the
+   same words; B6 launches 24 a prefill and 24 a decode step (counts
+   zeroed just before, read just after); prefill + decode logits against
+   ``forward`` on the extended sequence within ``tests/test_models.py``'s
+   0.15, on the rows whose compared token was routed alike in both runs
+   (routing words first); prefill ms, decode ms a step, tokens/s and the
+   peak memory. Training at full width, depth cut to 2 layers: 4 steps of
+   ``make_train_step`` at 8 x 512 tokens (microbatches 4, remat full; B6 16
+   launches a step), microbatches 4 against 1 within the reference's
+   5e-3, an int8 step held against the quantizer written out by hand, one
+   profiled step (wall, device busy, idle share). Then the nine smoke
+   configurations on the card against the port's CPU run of the same
+   parameters (forward, prefill, decode, one train step). B6 is timed at
+   the prefill's dispatch shape; the kernels line's B6 entry is that
+   row.
+
 Output: human-readable lines, then a JSON ``{"kernels": [...]}`` line, then
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``.
@@ -219,6 +241,11 @@ runs the device and build phases, saves the fleet phase's registry, then
 the parallel phase alone: on a machine of several cards it adds the mesh
 over every card to the virtual ones. It prints no kernel line, and its
 details go to ``chiprun_out/chip_smoke_parallel.json``.
+
+    python3 chip_smoke.py --only lm
+
+runs the device and build phases, then the lm phase alone; no kernel
+line, details in ``chiprun_out/chip_smoke_lm.json``.
 """
 from __future__ import annotations
 
@@ -2961,6 +2988,648 @@ def phase_sweep(kind):
                 direct_s=direct_s, grid_md=grid_md, direct_md=dmd)
 
 
+# ---------------------------------------------------------------------------
+# The LM stack (models/, training/train_loop.py, data/pipeline.py)
+# ---------------------------------------------------------------------------
+
+LM_PROMPT = (4, 512)        # prompts x tokens from TokenStream
+LM_DECODE = 16              # greedy decode steps after the prefill
+LM_TRAIN = (8, 512)         # train batch x tokens
+LM_TRAIN_STEPS = 4
+LM_TRAIN_LAYERS = 2         # training's depth cut (full width)
+LM_CORPUS = 200_000         # TokenStream corpus tokens
+LM_ATOL = 0.15              # tests/test_models.py's prefill/decode == forward
+LM_SMOKE_ULPS = 8           # card vs CPU, in bf16 ulps of the largest logit
+
+
+def lm_configs():
+    """The configurations the lm phase runs, spelled out with the port's
+    ``ArchConfig``: Qwen1.5-MoE-A2.7B's dimensions as
+    ``tests/_smoke_archs.py:95-103`` (``FULL["moe-14b"]``) gives them, and
+    the nine smoke configurations of ``tests/_smoke_archs.py`` (``SMOKES``,
+    one a distinct path of the stack)."""
+    from repro_torch.models.model import ArchConfig
+    from repro_torch.models.moe import MoEConfig
+    from repro_torch.models.ssm import MambaConfig
+
+    full = ArchConfig(
+        name="moe-14b", family="moe", n_layers=24, d_model=2048, n_heads=16,
+        kv_heads=16, d_ff=0, vocab=151936, act="swiglu", rope_theta=1e6,
+        moe=MoEConfig(n_experts=60, top_k=4, expert_d_ff=1408,
+                      shared_d_ff=5632, every_k_layers=1),
+        microbatches=4, remat="full",
+        source="Qwen1.5-MoE-A2.7B (tests/_smoke_archs.py:95-103)")
+    smokes = {
+        "dense-tied": ArchConfig(
+            name="dense-tied-smoke", family="dense", n_layers=2, d_model=64,
+            n_heads=4, kv_heads=2, d_ff=128, vocab=256, act="swiglu",
+            tie_embeddings=True, remat="none"),
+        "dense-untied": ArchConfig(
+            name="dense-untied-smoke", family="dense", n_layers=2,
+            d_model=64, n_heads=4, kv_heads=2, d_ff=128, vocab=128,
+            act="swiglu", remat="none"),
+        "dense-gelu-ln": ArchConfig(
+            name="dense-gelu-ln-smoke", family="dense", n_layers=2,
+            d_model=64, n_heads=4, kv_heads=2, d_ff=128, vocab=128,
+            act="gelu", norm="layernorm", remat="none"),
+        "dense-geglu-hd": ArchConfig(
+            name="dense-geglu-hd-smoke", family="dense", n_layers=2,
+            d_model=64, n_heads=2, kv_heads=2, head_dim=48, d_ff=128,
+            vocab=128, act="geglu", tie_embeddings=True, remat="none"),
+        "moe": ArchConfig(
+            name="moe-smoke", family="moe", n_layers=2, d_model=64,
+            n_heads=4, kv_heads=4, d_ff=0, vocab=128, act="swiglu",
+            moe=MoEConfig(n_experts=8, top_k=2, expert_d_ff=96,
+                          shared_d_ff=96, every_k_layers=1), remat="none"),
+        "hybrid": ArchConfig(
+            name="hybrid-smoke", family="hybrid", n_layers=8, d_model=64,
+            n_heads=4, kv_heads=2, d_ff=96, vocab=128, act="swiglu",
+            rope_theta=0.0,
+            block_pattern=("mamba", "mamba", "mamba", "mamba", "attn",
+                           "mamba", "mamba", "mamba"),
+            moe=MoEConfig(n_experts=4, top_k=2, expert_d_ff=96,
+                          every_k_layers=2),
+            mamba=MambaConfig(d_inner=128, d_state=8, d_conv=4),
+            sub_quadratic=True, remat="none"),
+        "xlstm": ArchConfig(
+            name="xlstm-smoke", family="ssm", n_layers=2, d_model=64,
+            n_heads=2, kv_heads=2, d_ff=0, vocab=128, act="gelu",
+            rope_theta=0.0, tie_embeddings=True,
+            block_pattern=("mlstm", "slstm"), sub_quadratic=True,
+            remat="none"),
+        "enc-dec-audio": ArchConfig(
+            name="enc-dec-audio-smoke", family="audio", n_layers=2,
+            d_model=64, n_heads=4, kv_heads=4, d_ff=128, vocab=128,
+            act="relu", norm="layernorm", rope_theta=0.0, enc_dec=True,
+            n_enc_layers=2, frontend="audio", remat="none"),
+        "vlm": ArchConfig(
+            name="vlm-smoke", family="vlm", n_layers=2, d_model=64,
+            n_heads=4, kv_heads=2, d_ff=128, vocab=128, act="swiglu",
+            frontend="vision", remat="none"),
+    }
+    return full, smokes
+
+
+class DispatchRecorder:
+    """Wraps ``kernels.ops.moe_gather`` (the MoE layer's B6 call) while a
+    ``with`` block runs: each dispatch's buffer is held bit for bit against
+    ``moe_gather_plain`` on the same words, and each call's routing is
+    recorded as a (T, experts) map of the assignments the capacity queues
+    kept (plain launches no B6, so the launch counts stay the path's
+    own)."""
+
+    def __init__(self, n_experts, keep_first=False):
+        self.n_experts, self.keep_first = n_experts, keep_first
+        self.assign, self.first = [], None
+
+    @property
+    def calls(self):
+        return len(self.assign)
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import moe_gather as mg
+        from repro_torch.kernels import ops
+
+        self._ops, self._orig = ops, ops.moe_gather
+
+        def wrapped(x, idx):
+            out = self._orig(x, idx)
+            with torch.no_grad():
+                check(torch.equal(out, mg.moe_gather_plain(x, idx)),
+                      f"lm: B6 dispatch {self.calls} differs from "
+                      "moe_gather_plain on the same words")
+                cap = idx.shape[0] // self.n_experts
+                expert = torch.arange(idx.shape[0], device=idx.device) // cap
+                live = idx >= 0
+                a = torch.zeros((x.shape[0], self.n_experts),
+                                dtype=torch.bool, device=idx.device)
+                a[idx[live].long(), expert[live]] = True
+                self.assign.append(a)
+                if self.keep_first and self.first is None:
+                    self.first = (x.detach().clone(), idx.clone())
+            return out
+
+        ops.moe_gather = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.moe_gather = self._orig
+
+
+def _sync_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _tree_to(tree, device):
+    from repro_torch.training.optimizer import _map
+
+    return _map(lambda t: t.to(device), tree)
+
+
+def lm_serve(full, device):
+    """Full width, full depth: prefill 4 prompts of 512 tokens from
+    TokenStream, greedy-decode 16 tokens; B6's dispatch buffers and
+    launches; prefill + decode against ``forward``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as TM
+    from repro_torch.training.optimizer import _leaves
+
+    B, S = LM_PROMPT
+    L = full.n_layers
+    E = full.moe.e_pad
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    (params, _), init_ms = _sync_ms(lambda: TM.init_model(gen, full,
+                                                          device=device))
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == full.param_count() + (2 * L + 1) * full.d_model,
+          f"lm: {n_params} parameters, the reference's param_count "
+          f"{full.param_count()} + the norms'")
+    prompt = TokenStream(full.vocab, S, B, seed=SEED, corpus_tokens=LM_CORPUS,
+                         device=device).batch(0)["tokens"]
+    check(prompt.shape == (B, S) and prompt.dtype == torch.int32,
+          "lm: TokenStream batch shape")
+    max_seq = S + LM_DECODE + 1     # + the profiled decode step's entry
+    with torch.no_grad():
+        # B6's buffers of one prefill held against plain; the first layer's
+        # dispatch kept for the kernel row
+        with DispatchRecorder(E, keep_first=True) as rec:
+            TM.prefill(params, full, {"tokens": prompt}, max_seq=max_seq)
+        check(rec.calls == L, f"lm: {rec.calls} B6 dispatches in the "
+              f"checked prefill, expected {L}")
+        dropped = [B * S * full.moe.top_k - int(a.sum()) for a in rec.assign]
+        b6_x, b6_idx = rec.first
+        del rec
+        # the path as a user calls it, timed
+        ops.reset_launch_counts()
+        (lp, caches), prefill_ms = _sync_ms(lambda: TM.prefill(
+            params, full, {"tokens": prompt}, max_seq=max_seq))
+        prefill_launches = ops.launch_counts["moe_gather"]
+        check(prefill_launches == L, f"lm: B6 launched {prefill_launches} "
+              f"times in the prefill, expected {L}")
+        check(bool(torch.isfinite(lp).all()), "lm: prefill logits not finite")
+        toks = [torch.argmax(lp, -1).to(torch.int32)]
+        step_ms, step_launches = [], []
+        for _ in range(LM_DECODE):
+            ops.reset_launch_counts()
+            (ld, caches), ms = _sync_ms(lambda: TM.decode_step(
+                params, full, caches, {"tokens": toks[-1][:, None]}))
+            step_launches.append(ops.launch_counts["moe_gather"])
+            step_ms.append(ms)
+            check(bool(torch.isfinite(ld).all()),
+                  "lm: decode logits not finite")
+            toks.append(torch.argmax(ld, -1).to(torch.int32))
+        check(all(n == L for n in step_launches),
+              f"lm: B6 launches per decode step {step_launches}, expected "
+              f"{L} each")
+        peak = torch.cuda.max_memory_allocated()
+
+        def one_decode_step():
+            TM.decode_step(params, full, caches, {"tokens": toks[-1][:, None]})
+            torch.cuda.synchronize()
+
+        decode_prof = profile_window(one_decode_step, reps=2)
+        del caches
+        holds = lm_vs_forward(params, full, prompt, max_seq)
+    decode_ms = sum(step_ms) / len(step_ms)
+    out = dict(
+        params=n_params, param_bytes=n_params * 4, init_ms=init_ms,
+        prefill_ms=prefill_ms, prefill_tokens=B * S,
+        prefill_tok_s=B * S / prefill_ms * 1e3,
+        decode_ms_per_step=decode_ms, decode_step_ms=step_ms,
+        decode_tok_s=B / decode_ms * 1e3,
+        b6_prefill_launches=prefill_launches,
+        b6_decode_launches=step_launches, peak_bytes=peak,
+        prefill_assignments_dropped_by_layer=dropped, vs_forward=holds,
+        decode_profile=decode_prof)
+    log(f"[lm] serve {full.name} (Qwen1.5-MoE-A2.7B dims, {L} layers, "
+        f"{n_params:,} fp32 parameters, {n_params * 4 / 1e9:.1f} GB; init "
+        f"{init_ms:.0f} ms on the card): prefill {B}x{S} {prefill_ms:.1f} ms "
+        f"({out['prefill_tok_s']:.0f} tok/s), decode {decode_ms:.2f} ms a "
+        f"step of {B} tokens ({out['decode_tok_s']:.1f} tok/s), peak "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[lm]   profiled decode step: wall {decode_prof['wall_ms']:.1f} ms,"
+        f" device busy {decode_prof['device_busy_ms']:.1f} ms, idle share "
+        f"{decode_prof['idle_share']:.3f}, {decode_prof['device_ops']} device "
+        f"ops; top {[(r['name'][:40], round(r['ms'], 2)) for r in decode_prof['top'][:4]]}")
+    log(f"[lm]   B6 launches: prefill {prefill_launches}, decode steps "
+        f"{sorted(set(step_launches))} (expected {L} each); the {L} "
+        f"dispatch buffers of a prefill == moe_gather_plain bit for bit; "
+        f"assignments the capacity queues dropped, by layer: {dropped}")
+    for h in holds:
+        log(f"[lm]   vs forward after {h['new_tokens']} new tokens "
+            f"(no-drop capacity): {h['rows_held']}/{B} rows whose compared "
+            f"token was routed alike at every layer held, max |err| "
+            f"{h['max_abs_err_held']:.4f} (tolerance {LM_ATOL}, "
+            f"tests/test_models.py's); by row {h['max_abs_err_rows']}, "
+            f"layers routed apart by row {h['layers_routed_apart_rows']}")
+    del params, lp
+    return out, (b6_x, b6_idx)
+
+
+def lm_vs_forward(params, full, prompt, max_seq):
+    """prefill + decode against ``forward`` on the extended sequence (as
+    ``tests/test_models.py::test_decode_matches_forward_dense_arch``): the
+    prompt's last logits, the first decode step's and the last's. The
+    capacity queues are sized so that nothing drops (capacity_factor =
+    experts / top_k): with drops, a forward over the longer sequence and a
+    4-token decode step fill the queues differently, which is the
+    reference's semantics and another computation. The combine's
+    ``index_add_`` runs deterministically here. Routing words first: a row
+    is held where its compared token was routed alike at every layer in
+    both runs (products of other shapes round an ulp apart, and an ulp can
+    flip a routing decision)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model as TM
+
+    B, S = prompt.shape
+    E = full.moe.e_pad
+    cfg = dataclasses.replace(full, moe=full.moe._replace(
+        capacity_factor=full.moe.n_experts / full.moe.top_k))
+    # index_add_ without atomics for these runs (PyTorch's deterministic
+    # path), so that one computation run twice rounds alike
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _vs_forward(params, cfg, prompt, max_seq, B, S, E)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _vs_forward(params, cfg, prompt, max_seq, B, S, E):
+    import torch
+
+    from repro_torch.models import model as TM
+
+    with DispatchRecorder(E) as rec:
+        lp, caches = TM.prefill(params, cfg, {"tokens": prompt},
+                                max_seq=max_seq)
+    routes, logits, toks = [[a.reshape(B, S, E)[:, -1] for a in rec.assign]], \
+        [lp], [torch.argmax(lp, -1).to(torch.int32)]
+    for _ in range(LM_DECODE):
+        with DispatchRecorder(E) as drec:
+            ld, caches = TM.decode_step(params, cfg, caches,
+                                        {"tokens": toks[-1][:, None]})
+        routes.append(drec.assign)
+        logits.append(ld)
+        toks.append(torch.argmax(ld, -1).to(torch.int32))
+    del caches
+    holds = []
+    for n_new in (0, 1, LM_DECODE):
+        seq = torch.cat([prompt] + [t[:, None] for t in toks[:n_new]], 1)
+        with DispatchRecorder(E) as frec:
+            lf, _ = TM.forward(params, cfg, {"tokens": seq}, remat=False)
+        ref = lf[:, -1, : cfg.vocab].float()
+        del lf
+        last = [a.reshape(B, seq.shape[1], E)[:, -1] for a in frec.assign]
+        apart = torch.zeros(B, dtype=torch.int32, device=prompt.device)
+        for x, y in zip(last, routes[n_new]):
+            apart += (x != y).any(-1).to(torch.int32)
+        held_rows = apart == 0
+        err = (logits[n_new] - ref).abs().amax(1)
+        held = int(held_rows.sum())
+        worst = float(err[held_rows].max()) if held else float("nan")
+        holds.append(dict(new_tokens=n_new, rows_held=held,
+                          max_abs_err_held=worst,
+                          max_abs_err_rows=[round(float(e), 4) for e in err],
+                          layers_routed_apart_rows=apart.tolist()))
+    for h in holds:
+        check(h["rows_held"] == 0 or h["max_abs_err_held"] <= LM_ATOL,
+              f"lm: prefill/decode vs forward after {h['new_tokens']} new "
+              f"tokens: max error {h['max_abs_err_held']} > {LM_ATOL}")
+    check(sum(h["rows_held"] for h in holds) > 0,
+          f"lm: no row's compared token routed alike in prefill/decode and "
+          f"forward: {holds}")
+    return holds
+
+
+def lm_train(full, device):
+    """Full width, depth cut to LM_TRAIN_LAYERS: LM_TRAIN_STEPS steps of
+    ``make_train_step`` at 8 x 512 tokens from TokenStream (microbatches 4,
+    remat full), microbatches 4 against 1 on one batch, an int8 step held
+    against the quantizer written out by hand, and one profiled step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as TM
+    from repro_torch.training import train_loop as TTL
+    from repro_torch.training.optimizer import _leaves, global_norm
+
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    m = cfg.microbatches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    params, _ = TM.init_model(gen, cfg, device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    stream = TokenStream(cfg.vocab, LM_TRAIN[1], LM_TRAIN[0], seed=SEED + 1,
+                         corpus_tokens=LM_CORPUS, device=device)
+    step = TTL.make_train_step(cfg, warmup=0)
+    state = TTL.init_state(params)
+    del params
+    losses, step_ms, launches = [], [], []
+    for i in range(LM_TRAIN_STEPS):
+        batch = stream.batch(i)
+        ops.reset_launch_counts()
+        (state, met), ms = _sync_ms(lambda: step(state, batch))
+        launches.append(ops.launch_counts["moe_gather"])
+        step_ms.append(ms)
+        losses.append(float(met["loss"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(
+            met["grad_norm"])), f"lm: train step {i} loss {losses[-1]}")
+    # one launch a microbatch a layer in the forward, and once more when
+    # the checkpointed period is recomputed in the backward (remat full)
+    want = m * LM_TRAIN_LAYERS * 2
+    check(all(n == want for n in launches),
+          f"lm: B6 launches per train step {launches}, expected {want}")
+    # microbatches 4 against 1 compute one mean gradient only where the
+    # capacity queues drop nothing: a microbatch's queues hold a quarter of
+    # the tokens at a quarter of the capacity, and which tokens drop
+    # differs. So this check sizes them for no drop (capacity_factor =
+    # experts / top_k), as lm_vs_forward does
+    nodrop = dataclasses.replace(cfg, moe=cfg.moe._replace(
+        capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    batch = stream.batch(LM_TRAIN_STEPS)
+    s4, m4 = TTL.make_train_step(nodrop, warmup=0)(state, batch)
+    p4 = s4.params
+    del s4
+    s1, m1 = TTL.make_train_step(dataclasses.replace(nodrop, microbatches=1),
+                                 warmup=0)(state, batch)
+    micro_loss = abs(float(m4["loss"]) - float(m1["loss"]))
+    micro_param = max(float((a - b).abs().max())
+                      for a, b in zip(_leaves(p4), _leaves(s1.params)))
+    del s1, p4
+    check(micro_loss < 5e-3 and micro_param < 5e-3,
+          f"lm: microbatches {m} vs 1: loss {micro_loss}, params "
+          f"{micro_param} (tests/test_training.py's 5e-3)")
+    # int8: the step's compressed gradients against the quantizer written
+    # out here, leaf by leaf, and the step's grad_norm against theirs
+    seen = {}
+    orig = TTL.compress_decompress
+
+    def by_hand_checked(grads):
+        out = orig(grads)
+        for g, dq in zip(_leaves(grads), _leaves(out)):
+            s = torch.clamp(g.float().abs().max(), min=1e-12) / 127.0
+            q = torch.clamp(torch.round(g.float() / s), -128, 127)
+            check(torch.equal(dq, (q.to(torch.int8).float() * s).to(g.dtype)),
+                  "lm: int8 step's gradients != the quantizer by hand")
+        seen["norm"] = global_norm(out)
+        seen["leaves"] = len(_leaves(out))
+        cpu = orig({"w": _leaves(grads)[0].cpu()})["w"]
+        seen["cpu_equal"] = torch.equal(cpu, _leaves(out)[0].cpu())
+        return out
+
+    TTL.compress_decompress = by_hand_checked
+    try:
+        s8, m8 = TTL.make_train_step(cfg, warmup=0, grad_compression="int8")(
+            state, batch)
+    finally:
+        TTL.compress_decompress = orig
+    check(seen and torch.equal(m8["grad_norm"], seen["norm"])
+          and seen["cpu_equal"] and np.isfinite(float(m8["loss"])),
+          "lm: the int8 step did not apply compress_decompress as written")
+    del s8
+    peak = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        step(state, batch)
+        torch.cuda.synchronize()
+
+    prof = profile_window(one_step, reps=1)
+    out = dict(layers=cfg.n_layers, params=n_params, losses=losses,
+               step_ms=step_ms, b6_launches_per_step=launches,
+               micro_loss_diff=micro_loss, micro_param_diff=micro_param,
+               int8_leaves=seen["leaves"], peak_bytes=peak, profile=prof)
+    log(f"[lm] train {cfg.name} at full width, depth cut to {cfg.n_layers} "
+        f"layers ({n_params:,} parameters), {LM_TRAIN[0]}x{LM_TRAIN[1]} "
+        f"tokens a step, microbatches {m}, remat {cfg.remat}: ms a step "
+        f"{fmt_spread(spread(step_ms), '{:.1f}')}, losses "
+        f"{[round(x, 4) for x in losses]}, B6 launches a step {launches}, "
+        f"peak {peak / 2**30:.2f} GiB")
+    log(f"[lm]   microbatches {m} vs 1 on one batch (no-drop capacity): "
+        f"|loss diff| "
+        f"{micro_loss:.2e}, max |param diff| {micro_param:.2e} (< 5e-3); "
+        f"int8 step: {seen['leaves']} leaves == the quantizer by hand, "
+        f"grad_norm == theirs, card == CPU on the first leaf")
+    log(f"[lm]   profiled step: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops; top "
+        f"{[(r['name'][:40], round(r['ms'], 2)) for r in prof['top'][:4]]}")
+    del state
+    return out
+
+
+def _smoke_batch(cfg, B=2, S=16, seed=0):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = {}
+    if cfg.enc_dec:
+        b["src_embeddings"] = torch.from_numpy(
+            rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)).bfloat16()
+        b["tokens"] = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+    elif cfg.frontend != "none":
+        b["embeddings"] = torch.from_numpy(
+            rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)).bfloat16()
+    else:
+        b["tokens"] = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+    b["labels"] = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+    return b
+
+
+def lm_smokes(smokes, device):
+    """The nine smoke configurations on the card, each against the port's
+    own CPU run of the same parameters: ``forward``, one train step's loss,
+    ``prefill`` and ``decode_step`` logits within LM_SMOKE_ULPS bf16 ulps of
+    the largest (cuBLAS and the combine's atomics round apart from the
+    CPU), at the positions whose routing words agree; B6 once a MoE layer
+    in the forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as TM
+    from repro_torch.models.transformer import _use_moe
+    from repro_torch.training import train_loop as TTL
+    from repro_torch.training.optimizer import _leaves
+
+    rows = {}
+    for name, cfg in smokes.items():
+        params, _ = TM.init_model(torch.Generator().manual_seed(SEED), cfg,
+                                  device="cpu")
+        batch = _smoke_batch(cfg)
+        B, S = batch["labels"].shape
+        pf = {k: v for k, v in batch.items() if k != "labels"}
+        dec = {"tokens": torch.zeros((B, 1), dtype=torch.int32)}
+        if cfg.enc_dec:
+            dec["enc_out"] = torch.from_numpy(np.random.default_rng(1).normal(
+                size=(B, S, cfg.d_model)).astype(np.float32)).bfloat16()
+        res = {}
+        for dev in ("cpu", device):
+            p = _tree_to(params, dev)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            recs = []
+
+            def recorder():
+                recs.append(DispatchRecorder(cfg.moe.e_pad) if cfg.moe
+                            else contextlib.nullcontext())
+                return recs[-1]
+
+            with torch.no_grad():
+                ops.reset_launch_counts()
+                with recorder():
+                    lf, _ = TM.forward(p, cfg, b, remat=False)
+                n_b6 = ops.launch_counts["moe_gather"]
+                with recorder():
+                    lp, c = TM.prefill(p, cfg, {k: v.to(dev) for k, v in
+                                                pf.items()}, max_seq=S + 4)
+                with recorder():
+                    ld, _ = TM.decode_step(p, cfg, c, {
+                        k: v.to(dev) for k, v in dec.items()})
+            st, met = TTL.make_train_step(cfg, warmup=0)(TTL.init_state(p), b)
+            res[str(dev)] = dict(
+                forward=lf.float().cpu(), prefill=lp.cpu(), decode=ld.cpu(),
+                loss=float(met["loss"]), b6=n_b6,
+                routes=[[a.cpu() for a in r.assign] if cfg.moe else []
+                        for r in recs],
+                finite=all(bool(torch.isfinite(t).all())
+                           for t in _leaves(st.params)))
+        cpu, card = res["cpu"], res[str(device)]
+        # routing words first: a position is compared where it and every
+        # earlier position of its row were routed alike at every MoE layer
+        # (causal mixers: nothing later reaches it)
+        clean = torch.ones((B, S), dtype=torch.bool)
+        for a, b_ in zip(cpu["routes"][0], card["routes"][0]):
+            clean &= (a == b_).all(-1).reshape(B, S)
+        clean = torch.cumprod(clean.to(torch.int32), 1).bool()
+        dec_ok = clean[:, -1].clone()
+        for a, b_ in zip(cpu["routes"][2], card["routes"][2]):
+            dec_ok &= (a == b_).all(-1)
+        masks = {"forward": clean, "prefill": clean[:, -1], "decode": dec_ok}
+        errs = {}
+        for k in ("forward", "prefill", "decode"):
+            ref, got, m = cpu[k], card[k], masks[k]
+            tol = LM_SMOKE_ULPS * 2.0 ** -8 * float(ref.abs().max())
+            err = float((got - ref).abs()[m].max()) if m.any() else 0.0
+            errs[k] = err
+            check(err <= tol, f"lm: smoke {name} {k} on the card vs CPU: "
+                  f"{err} > {tol}")
+        loss_err = abs(card["loss"] - cpu["loss"])
+        check(loss_err <= 2.0 ** -8 * abs(cpu["loss"]) and card["finite"],
+              f"lm: smoke {name} train step: loss {card['loss']} vs CPU "
+              f"{cpu['loss']}")
+        n_moe = sum(_use_moe(cfg, i) for i in range(cfg.n_layers))
+        check(card["b6"] == n_moe,
+              f"lm: smoke {name}: B6 launched {card['b6']} times in the "
+              f"forward, expected {n_moe}")
+        rows[name] = dict(max_abs_err=errs, loss=card["loss"],
+                          loss_cpu=cpu["loss"], b6_launches=card["b6"],
+                          positions_compared=int(clean.sum()),
+                          positions=B * S)
+    log(f"[lm] smokes on the card == the port's CPU run within "
+        f"{LM_SMOKE_ULPS} bf16 ulps of the largest logit (forward, prefill, "
+        f"decode; at positions routed alike, of all) and 2^-8 of the loss: "
+        + ", ".join(f"{n} {max(r['max_abs_err'].values()):.2e} "
+                    f"({r['positions_compared']}/{r['positions']})"
+                    for n, r in rows.items())
+        + f"; B6 launches a forward "
+        f"{ {n: r['b6_launches'] for n, r in rows.items() if r['b6_launches']} }")
+    return rows
+
+
+def lm_b6_row(x, idx):
+    """B6 at the prefill's dispatch shape (its first layer's tokens and
+    words): timed beside its plain version and ``index_select`` on x with a
+    zero row appended; the bound is bytes."""
+    import torch
+
+    from repro_torch.kernels import moe_gather as mg
+
+    t, d = x.shape
+    s = idx.shape[0]
+    got = mg.moe_gather_cuda(x, idx)
+    x_pad = torch.cat([x, x.new_zeros((1, d))])
+    idx_pad = torch.where(idx < 0, t, idx)
+
+    def library():
+        return torch.index_select(x_pad, 0, idx_pad)
+
+    check(torch.equal(got, mg.moe_gather_plain(x, idx))
+          and torch.equal(got, library()),
+          "lm: B6 at the prefill shape differs from plain / index_select")
+    esize = x.element_size()
+    used = int(torch.unique(idx[idx >= 0]).numel())
+    nbytes = used * d * esize + s * d * esize + s * 4
+    b_ms, b_by = bound(nbytes, 0, FP32_FLOP_PER_S)
+    row = dict(T=t, d=d, S=s, dtype=str(x.dtype).split(".")[-1],
+               live_slots=int((idx >= 0).sum()), tokens_read=used,
+               bytes=nbytes, max_abs_err=0.0,
+               ms=time_ms(lambda: mg.moe_gather_cuda(x, idx)),
+               device_ms=device_ms(lambda: mg.moe_gather_cuda(x, idx),
+                                   KERNEL_NAMES["moe_gather"]),
+               plain_ms=time_ms(lambda: mg.moe_gather_plain(x, idx)),
+               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+    log(f"[lm] B6 at the prefill dispatch (T={t}, d={d}, S={s}, "
+        f"{row['dtype']}, {row['live_slots']} live slots): ms "
+        f"{row['ms']:.4f} (device {row['device_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f}, index_select {row['library_ms']:.4f}, bound "
+        f"{b_ms:.5f} ({b_by}, {nbytes} bytes) | bit-exact")
+    return row
+
+
+def phase_lm(device):
+    """[lm]: serve Qwen1.5-MoE-A2.7B's dimensions at full width and depth,
+    train them at full width and two layers, run the nine smoke
+    configurations; B6 on the MoE dispatch path."""
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full, smokes = lm_configs()
+    serve, (b6_x, b6_idx) = lm_serve(full, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b6 = lm_b6_row(b6_x, b6_idx)
+    b6["launches"] = serve["b6_prefill_launches"]
+    del b6_x, b6_idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = lm_train(full, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = lm_smokes(smokes, device)
+    seconds = time.perf_counter() - t0
+    log(f"[lm] phase {seconds:.1f} s")
+    return dict(serve=serve, train=train, smokes=smoke, b6=b6,
+                seconds=seconds)
+
+
 def save_fleet_registry(params, device):
     """The fleet phase's two-handle registry, saved to its directory
     (for the parallel phase run alone)."""
@@ -2981,8 +3650,9 @@ def save_fleet_registry(params, device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 chip_smoke.py")
-    ap.add_argument("--only", choices=("parallel",), default=None,
-                    help="run the device, build and parallel phases alone")
+    ap.add_argument("--only", choices=("parallel", "lm"), default=None,
+                    help="run the device and build phases, then the "
+                         "parallel or the lm phase alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -2998,7 +3668,21 @@ def main(argv=None) -> int:
     device = resolve_device("cuda")
     kind, smi_line = phase_device()
     build = phase_build()
+    if args.only == "lm":
+        lm = phase_lm(device)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_lm.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi_line, build=build, lm=lm,
+            seconds=time.perf_counter() - t_all), indent=1))
+        log(f"[done] {time.perf_counter() - t_all:.1f} s")
+        print(smi_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     audit = None if args.only == "parallel" else phase_audit()
+    lm = None if args.only == "parallel" else phase_lm(device)
 
     params = init_params(torch.Generator().manual_seed(SEED), SPEC, HW, C_IN,
                          device=device)
@@ -3081,7 +3765,7 @@ def main(argv=None) -> int:
     b5_bound, b5_by = bound(sum(r["bytes"] for r in b5_path),
                             sum(r["R"] * r["P"] for r in b5_path),
                             INT32_OP_PER_S)
-    b6_main = b6[0]                     # kernel_bench's shape, float32
+    b6_main = lm["b6"]    # the prefill's dispatch (kernel_bench's: b6[0])
     b1_bound, b1_by = bound(sum(r["bytes"] for r in b1_path),
                             sum(r["adds"] for r in b1_path), FP32_FLOP_PER_S)
     b3_bound, b3_by = bound(sum(r["bytes"] for r in b3_path),
@@ -3129,23 +3813,24 @@ def main(argv=None) -> int:
         dict(name="moe_gather", route="cuda",
              source="src/repro_torch/csrc/moe_gather.cu",
              replaces="src/repro/kernels/moe_gather.py:33",
-             launches=b6_launches, max_abs_err=0.0, ms=b6_main["ms"],
+             launches=b6_main["launches"], max_abs_err=0.0, ms=b6_main["ms"],
              plain_ms=b6_main["plain_ms"], bound_ms=b6_main["bound_ms"],
              bound_by=b6_main["bound_by"], library_ms=b6_main["library_ms"]),
     ]
     windows = ("serve (graph replays)", "serve (graph replays)",
-               "queue_sparse", "queue", "queue", "kernel_bench call")
+               "queue_sparse", "queue", "queue", "lm prefill")
     for k, window in zip(kernels, windows):
         lib = ("none" if k["library_ms"] is None
                else f"{k['library_ms']:.4f}")
-        unit = ("per call at kernel_bench's shape" if k["name"] == "moe_gather"
-                else "per bucket-64 execution")
+        unit = ("per call at the lm prefill's dispatch shape"
+                if k["name"] == "moe_gather" else "per bucket-64 execution")
         log(f"[summary] {k['name']}: {k['ms']:.4f} ms {unit} "
             f"(plain {k['plain_ms']:.4f}, library {lib}, bound "
             f"{k['bound_ms']:.6f} {k['bound_by']}), {k['launches']} launches "
             f"in the {window} window")
     details = dict(device=kind, nvidia_smi=smi_line, build=build,
                    b1=b1, b2=b2, b3=b3, c3=c3, b4=b4, b5=b5, b6=b6,
+                   b6_kernel_bench_launches=b6_launches, lm=lm,
                    serve=serve,
                    mask_contract=mask, sparse=sparse, word=word,
                    kernels=kernels, profile=profile, study=study,

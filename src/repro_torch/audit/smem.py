@@ -29,6 +29,7 @@ KERNEL_MODULES = (
     "repro_torch.kernels.spike_sparse",
     "repro_torch.kernels.event_accum",
     "repro_torch.kernels.spike_compact",
+    "repro_torch.kernels.moe_gather",
 )
 
 #: Queue depth the studies run at (SNNConfig default) — the worst case the
@@ -74,14 +75,23 @@ def module_blocks(module, launch, **geometry):
     return module.smem_blocks(**kw, **geometry)
 
 
+def module_geometries(module, depth: int = DEFAULT_DEPTH):
+    """``(label, geometry)`` pairs a module is checked at: its own
+    ``SMEM_GEOMETRIES`` where it lists them, else every paper geometry."""
+    own = getattr(module, "SMEM_GEOMETRIES", None)
+    if own is not None:
+        return [("lm", dict(g)) for g in own]
+    return list(paper_geometries(depth))
+
+
 def check_smem(root: str, depth: int = DEFAULT_DEPTH,
                budget: int = SMEM_BUDGET_BYTES) -> list[Finding]:
-    """``smem-budget``: every paper geometry of every launch fits a block."""
+    """``smem-budget``: every geometry of every launch fits a block."""
     out = []
-    geoms = list(paper_geometries(depth))
     for mod_name in KERNEL_MODULES:
         module = importlib.import_module(mod_name)
         rel, line = module_anchor(module, root)
+        geoms = module_geometries(module, depth)
         for launch in launches(module):
             for dataset, geom in geoms:
                 total = block_bytes(module_blocks(module, launch, **geom))
@@ -105,10 +115,11 @@ def kernel_footprint(mod_name: str, launch=None, **geometry) -> int:
 def launcher_cases(gather_shapes=(), compact_shapes=(),
                    depths=(64, DEFAULT_DEPTH), N: int = 64) -> list:
     """``(module name, geometry)`` pairs for :func:`compare_launchers`:
-    every kernel module at every paper geometry (``N`` rows, as a serve
-    bucket's), then the gathers of B1, B3 and B4 at ``gather_shapes``
-    ((hw, C_in, C_out, K, rows, depth) maps) and B5 at ``compact_shapes``
-    ((rows, n_win, depth) queues); each pair once."""
+    every kernel module of the SNN path at every paper geometry (``N``
+    rows, as a serve bucket's), B6 at its ``SMEM_GEOMETRIES``, then the
+    gathers of B1, B3 and B4 at ``gather_shapes`` ((hw, C_in, C_out, K,
+    rows, depth) maps) and B5 at ``compact_shapes`` ((rows, n_win, depth)
+    queues); each pair once."""
     seen, cases = set(), []
 
     def add(mod, geom):
@@ -117,10 +128,16 @@ def launcher_cases(gather_shapes=(), compact_shapes=(),
             seen.add(key)
             cases.append((mod, geom))
 
+    own = {m: getattr(importlib.import_module(m), "SMEM_GEOMETRIES", None)
+           for m in KERNEL_MODULES}
     for depth in depths:
         for _, geom in paper_geometries(depth):
             for mod in KERNEL_MODULES:
-                add(mod, dict(geom, N=N))
+                if own[mod] is None:
+                    add(mod, dict(geom, N=N))
+    for mod, geoms in own.items():
+        for geom in geoms or ():
+            add(mod, dict(geom))
     for hw, _, c_out, K, rows, depth in gather_shapes:
         for mod in KERNEL_MODULES[:3]:
             add(mod, dict(K=K, n_win=-(-hw // K), H=hw, W=hw, C_out=c_out,
@@ -134,14 +151,16 @@ def compare_launchers(cases, sm_count: int) -> list[dict]:
     """On the card: for each ``(module name, geometry)`` case, every
     launch's ``smem_blocks`` total beside the bytes its compiled launcher
     requests (the module's ``launch_smem``). ``sm_count`` picks B4's gather
-    cells as its launcher does. Each row has ``python``, ``c`` and
-    ``equal``."""
+    cells as its launcher does, and sizes B6's grid (a module with
+    ``SMEM_BY_SM_COUNT``). Each row has ``python``, ``c`` and ``equal``."""
     rows = []
     for mod_name, geom in cases:
         module = importlib.import_module(mod_name)
         c = module.launch_smem(**geom)
         for launch in launches(module):
             kw = dict(geom)
+            if getattr(module, "SMEM_BY_SM_COUNT", False):
+                kw["sm_count"] = sm_count
             if launch == "gather":
                 kw["cells"] = module.gather_cells(
                     geom["N"], geom["K"], geom["H"], geom["W"], geom["C_out"],

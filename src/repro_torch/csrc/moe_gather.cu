@@ -210,25 +210,47 @@ int launch_warp(const void* x, const void* idx, void* out, int T, int S,
   return (int)cudaGetLastError();
 }
 
-int launch_bulk(const void* x, const void* idx, void* out, int T, int S,
-                int row_bytes, cudaStream_t stream) {
+// The bulk route's launch: a persistent grid of up to two blocks an SM,
+// each owning at most kMaxSlots slots; its ring's stages hold whole rows
+// (as many as fit kStageBytes and the block's slots) or pieces of a longer
+// row; then the block's token table. smem is what a block requests
+// (kernels/moe_gather.py's smem_blocks adds up the same bytes).
+struct BulkPlan {
+  long long grid;
+  int per_block, rows_per, pieces, stage_bytes;
+  size_t smem;
+};
+
+BulkPlan bulk_plan(int S, int row_bytes, int sms) {
+  BulkPlan p;
+  p.grid = 2LL * sms;
+  if (p.grid > S) p.grid = S;
+  if (p.grid < (S + kMaxSlots - 1) / kMaxSlots)
+    p.grid = (S + kMaxSlots - 1) / kMaxSlots;
+  p.per_block = (int)((S + p.grid - 1) / p.grid);
+  p.rows_per = 1;
+  p.pieces = 1;
+  p.stage_bytes = kStageBytes;
+  if (row_bytes <= kStageBytes) {
+    p.rows_per = min(kStageBytes / row_bytes, p.per_block);
+    p.stage_bytes = p.rows_per * row_bytes;
+  } else {
+    p.pieces = (row_bytes + kStageBytes - 1) / kStageBytes;
+  }
+  p.smem = (size_t)kStages * p.stage_bytes + sizeof(int32_t) * p.per_block;
+  return p;
+}
+
+int device_sms() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long grid = 2LL * sms;
-  if (grid > S) grid = S;
-  if (grid < (S + kMaxSlots - 1) / kMaxSlots)
-    grid = (S + kMaxSlots - 1) / kMaxSlots;
-  const int per_block = (int)((S + grid - 1) / grid);
-  int rows_per = 1, pieces = 1, stage_bytes = kStageBytes;
-  if (row_bytes <= kStageBytes) {
-    rows_per = min(kStageBytes / row_bytes, per_block);
-    stage_bytes = rows_per * row_bytes;
-  } else {
-    pieces = (row_bytes + kStageBytes - 1) / kStageBytes;
-  }
-  const size_t smem =
-      (size_t)kStages * stage_bytes + sizeof(int32_t) * per_block;
+  return sms;
+}
+
+int launch_bulk(const void* x, const void* idx, void* out, int T, int S,
+                int row_bytes, cudaStream_t stream) {
+  const BulkPlan p = bulk_plan(S, row_bytes, device_sms());
   static bool opted_in[per_device::kMaxDevices] = {};
   const int err = per_device::once(opted_in, [] {
     return cudaFuncSetAttribute(
@@ -236,10 +258,10 @@ int launch_bulk(const void* x, const void* idx, void* out, int T, int S,
         kStages * kStageBytes + (int)sizeof(int32_t) * kMaxSlots);
   });
   if (err) return err;
-  moe_gather_bulk_kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
+  moe_gather_bulk_kernel<<<(unsigned)p.grid, kThreads, p.smem, stream>>>(
       static_cast<const char*>(x), static_cast<const int32_t*>(idx),
-      static_cast<char*>(out), T, S, row_bytes, rows_per, pieces,
-      stage_bytes);
+      static_cast<char*>(out), T, S, row_bytes, p.rows_per, p.pieces,
+      p.stage_bytes);
   return (int)cudaGetLastError();
 }
 
@@ -266,6 +288,14 @@ int moe_gather(const void* x, const void* idx, void* out, int T, int S,
     case 1: return launch_warp<uint8_t>(x, idx, out, T, S, row_bytes, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The dynamic shared memory a block of the launch for S slots of row_bytes
+// requests on the current device, with both pointers 16-byte aligned: the
+// bulk route's (bulk_plan), or 0 for the warp copy.
+long long moe_gather_smem(int S, int row_bytes) {
+  if (row_bytes % 16 || row_bytes <= 16 * 32) return 0;
+  return (long long)bulk_plan(S, row_bytes, device_sms()).smem;
 }
 
 }  // extern "C"

@@ -26,7 +26,7 @@ from .. import obs
 from . import ref as _ref
 from ._cuda import launch_counts, reset_launch_counts  # noqa: F401
 from .event_accum import event_accum_cuda, event_accum_plain
-from .moe_gather import moe_gather_cuda, moe_gather_plain
+from .moe_gather import MoEGather
 from .quant_matmul import quant_matmul_cuda, quant_matmul_plain
 from .spike_pipeline import fused_spike_accum_cuda, fused_spike_accum_plain
 from .spike_compact import spike_compact_cuda, spike_compact_plain
@@ -116,7 +116,6 @@ def spike_compact(occ, *, n_win, bits, depth, invalid):
 
 
 def moe_gather(x, indices):
-    """Rows ``indices[s]`` of ``x`` (T, d); a negative index gives zeros."""
-    if x.device.type == "cuda":
-        return moe_gather_cuda(x, indices)
-    return moe_gather_plain(x, indices)
+    """Rows ``indices[s]`` of ``x`` (T, d); a negative index gives zeros.
+    Differentiable in ``x`` (:class:`MoEGather`)."""
+    return MoEGather.apply(x, indices)

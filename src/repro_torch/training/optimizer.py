@@ -1,4 +1,4 @@
-"""AdamW on the list-of-dicts params (port of ``repro.training.optimizer``).
+"""AdamW on parameter trees (port of ``repro.training.optimizer``).
 
 Written as the reference writes it, not as ``torch.optim.AdamW``: the
 gradients are clipped by their global norm first, the bias corrections are
@@ -15,15 +15,27 @@ import torch
 
 
 def _map(fn, *trees):
-    """``fn`` over the tensors of list-of-dict params, keeping the layout."""
-    return [{k: fn(*(t[i][k] for t in trees)) for k in layer}
-            for i, layer in enumerate(trees[0])]
+    """``fn`` over the tensors of a parameter tree (nested dicts, lists,
+    tuples and named tuples: the layer list of the SNN nets, the nested
+    dicts of the LM stack), keeping the layout."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
 
 
 def _leaves(tree):
     """The tensors in the reference's leaf order (dict keys sorted, as
     ``jax.tree.leaves`` walks a dict)."""
-    return [layer[k] for layer in tree for k in sorted(layer)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
 
 
 class AdamWState(NamedTuple):

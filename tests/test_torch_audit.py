@@ -554,7 +554,8 @@ def test_smem_rule_fires_under_a_tiny_budget():
                for f in found)
     assert {f.file for f in found} == {
         f"src/repro_torch/kernels/{m}.py" for m in
-        ("spike_pipeline", "spike_sparse", "event_accum", "spike_compact")}
+        ("spike_pipeline", "spike_sparse", "event_accum", "spike_compact",
+         "moe_gather")}
 
 
 def test_smem_paper_geometries_fit_the_real_budget():

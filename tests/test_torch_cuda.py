@@ -535,6 +535,77 @@ def test_moe_gather_kernel_all_slots_empty(cuda, dtype):
         assert got.shape == (s, d) and not got.any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,s", [(2048, 2048, 10560), (4, 2048, 480),
+                                   (16, 64, 64), (10, 128, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gather_autograd_forward_and_backward(cuda, t, d, s, dtype):
+    """``ops.moe_gather`` as the MoE layer calls it (``MoEGather``): the
+    forward is one B6 launch, bit-exact to the plain version; the backward
+    (``index_add_`` of each live slot's row into its token's row, nothing
+    for an empty slot) equals autograd through the plain version: bit for
+    bit in fp32 with one slot a token, and in any case within the bound of
+    two summation orders (atomics add in any order), 2 (n - 1) 2^-p times
+    the sum of the n contributions' magnitudes (p = 24 fp32, 8 bf16).
+    Shapes: Qwen1.5-MoE-A2.7B's prefill and decode dispatch, a smoke's."""
+    rng = np.random.default_rng(t + s)
+    x0 = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32))
+    x0 = x0.to(dtype).to(cuda)
+    idx = torch.from_numpy(rng.integers(-1, t, s).astype(np.int32)).to(cuda)
+    cot = torch.from_numpy(rng.normal(size=(s, d)).astype(np.float32))
+    cot = cot.to(dtype).to(cuda)
+    x = x0.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    out = ops.moe_gather(x, idx)
+    assert ops.launch_counts["moe_gather"] == 1
+    (grad,) = torch.autograd.grad(out, x, cot)
+    assert ops.launch_counts["moe_gather"] == 1      # backward is no B6
+    torch.cuda.synchronize()
+    xp = x0.clone().requires_grad_(True)
+    plain = mg.moe_gather_plain(xp, idx)
+    (want,) = torch.autograd.grad(plain, xp, cot)
+    assert torch.equal(out.detach(), plain.detach())
+    live = idx >= 0
+    rows = torch.where(live, idx, t).long()
+    n = torch.zeros(t + 1, device=cuda).index_add_(
+        0, rows, torch.ones(s, device=cuda))[:t, None]
+    mag = torch.zeros((t + 1, d), device=cuda).index_add_(
+        0, rows, cot.float().abs())[:t]
+    p = 24 if dtype == torch.float32 else 8
+    bound = 2 * torch.clamp(n - 1, min=0) * 2.0 ** -p * mag
+    assert ((grad.float() - want.float()).abs() <= bound).all()
+    one = (n[:, 0] <= 1)
+    assert torch.equal(grad[one], want[one])
+
+
+@pytest.mark.cuda
+def test_lm_moe_forward_launches_b6_once_a_layer(cuda):
+    """The MoE smoke configuration's forward on the card: B6 launches once
+    per MoE layer (2) and the logits equal the port's CPU run of the same
+    parameters within 8 bf16 ulps of their largest magnitude (cuBLAS and
+    the atomics of the combine round apart from the CPU)."""
+    from repro_torch.models import model as TM
+    from repro_torch.models.moe import MoEConfig
+    from repro_torch.training.optimizer import _map
+
+    cfg = TM.ArchConfig(
+        name="moe-smoke", family="moe", n_layers=2, d_model=64, n_heads=4,
+        kv_heads=4, d_ff=0, vocab=128, act="swiglu",
+        moe=MoEConfig(n_experts=8, top_k=2, expert_d_ff=96, shared_d_ff=96,
+                      every_k_layers=1), remat="none")
+    params, _ = TM.init_model(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128, (2, 16)).astype(np.int32))
+    want, _ = TM.forward(params, cfg, {"tokens": toks})
+    on_card = _map(lambda t: t.to(cuda), params)
+    ops.reset_launch_counts()
+    got, _ = TM.forward(on_card, cfg, {"tokens": toks.to(cuda)})
+    assert ops.launch_counts["moe_gather"] == 2
+    err = (got.float().cpu() - want.float()).abs().max()
+    assert err <= 8 * 2.0 ** -8 * want.float().abs().max(), float(err)
+
+
 B4_REPEAT_SHAPES = [  # (hw, K, c_in, c_out, rows): K in {1, 3, 5, 7}, both
     # AE formats, two channel chunks, and a 3x3 stage (2-cell blocks)
     (9, 3, 2, 8, 3), (12, 3, 3, 40, 3), (32, 3, 40, 40, 8), (3, 3, 64, 128, 64),

@@ -32,7 +32,12 @@ NAMED = ("parallel/__init__.py", "parallel/mesh.py", "parallel/executor.py",
          "audit/__init__.py", "audit/__main__.py", "audit/ast_rules.py",
          "audit/cli.py", "audit/contracts.py", "audit/findings.py",
          "audit/gh_summary.py", "audit/harness.py", "audit/probe.py",
-         "audit/reachability.py", "audit/smem.py", "audit/trace_rules.py")
+         "audit/reachability.py", "audit/smem.py", "audit/trace_rules.py",
+         "models/__init__.py", "models/layers.py", "models/ffn.py",
+         "models/attention.py", "models/moe.py", "models/ssm.py",
+         "models/xlstm.py", "models/transformer.py", "models/model.py",
+         "training/grad_compress.py", "training/train_loop.py",
+         "data/pipeline.py")
 
 
 def test_port_files_exist():
