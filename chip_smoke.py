@@ -231,6 +231,29 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    the prefill's dispatch shape; the kernels line's B6 entry is that
    row.
 
+16. resilient — right after the lm phase: ``runtime.run_resilient`` over
+   the same 2-layer train step at full width (8 x 512 tokens, microbatches
+   4), a checkpoint every 2 steps under ``build/resilient-ckpt`` (about 21
+   GB each: fp32 params and both AdamW moments; removed afterwards), the
+   first try of step 3 failing with an injected ``RuntimeError``: the loop
+   restores step 2 and ends at step 4 (step executions 0, 1, 2, 2, 3); B6
+   16 launches each. Bytes a checkpoint, seconds a snapshot, a write and a
+   restore, ms a step execution, peak memory.
+
+17. placement — the host mesh (``launch.mesh.make_host_mesh``) on the
+   card; ``Resolver.tree_shardings`` of Qwen1.5-MoE-A2.7B's parameters on
+   it; the step-4 checkpoint restored to the host and placed on the card by
+   ``reshard_on_load`` == the final train state, bit for bit; the MoE
+   smoke's forward under ``use_resolver`` == without, bit for bit, with the
+   same B6 launches and the CPU run's constrain calls.
+
+18. dryrun — host only: ``launch.dryrun.build_cell`` records of
+   Qwen1.5-MoE-A2.7B at train_4k, prefill_32k and decode_32k on the 16 x
+   16 virtual mesh and train_4k under ``dp_only`` (traced on ``meta``);
+   then the roofline, on the H100 constants of ``launch/dryrun.py``, of the
+   lm phase's measured prefill, decode step and train step on a 1 x 1 mesh,
+   beside their measured times.
+
 Output: human-readable lines, then a JSON ``{"kernels": [...]}`` line, then
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``.
@@ -244,8 +267,9 @@ details go to ``chiprun_out/chip_smoke_parallel.json``.
 
     python3 chip_smoke.py --only lm
 
-runs the device and build phases, then the lm phase alone; no kernel
-line, details in ``chiprun_out/chip_smoke_lm.json``.
+runs the device and build phases, then the lm phase alone, with the
+resilient, placement and dryrun phases; no kernel line, details in
+``chiprun_out/chip_smoke_lm.json``.
 """
 from __future__ import annotations
 
@@ -3602,6 +3626,285 @@ def lm_b6_row(x, idx):
     return row
 
 
+RESILIENT_EVERY = 2          # run_resilient's ckpt_every
+RESILIENT_FAIL = 3           # the step whose first try is made to fail
+RESILIENT_STEPS = 4          # max_steps
+CKPT_DIR = ROOT / "build" / "resilient-ckpt"   # in the checkout, removed after
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def lm_resilient(full, device):
+    """[resilient]: ``runtime.run_resilient`` over the LM train step at
+    Qwen1.5-MoE-A2.7B's width, depth cut to LM_TRAIN_LAYERS, 8 x 512
+    tokens from TokenStream, microbatches 4: a checkpoint every 2 steps,
+    the first try of step 3 fails (an injected RuntimeError), the loop
+    restores step 2 and runs to step 4. Times each step execution (saves
+    excluded), each checkpoint's device-to-host snapshot and its write, the
+    restore; B6 launches a step execution. Then [placement]'s checkpoint
+    check: the step-4 checkpoint restored to the host and placed on the
+    card by ``reshard_on_load`` over the host mesh's shardings == the final
+    state, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.runtime import fault_tolerance as ft
+    from repro_torch.sharding.resolver import Resolver
+    from repro_torch.training import train_loop as TTL
+    from repro_torch.training.optimizer import _leaves
+
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    params, axes = TM.init_model(gen, cfg, device=device)
+    box = [TTL.init_state(params)]
+    del params
+    stream = TokenStream(cfg.vocab, LM_TRAIN[1], LM_TRAIN[0], seed=SEED + 2,
+                         corpus_tokens=LM_CORPUS, device=device)
+    step = TTL.make_train_step(cfg, warmup=0)
+    execs, snaps, writes, restores = [], [], [], []
+
+    def timed_step(state, batch):
+        n = int(state.step)
+        ops.reset_launch_counts()
+        out, ms = _sync_ms(lambda: step(state, batch))
+        execs.append(dict(step=n, ms=ms,
+                          b6=ops.launch_counts["moe_gather"]))
+        return out
+
+    orig_save, orig_snap, orig_restore = (ck.save, ck.AsyncCheckpointer.save,
+                                          ft.restore)
+
+    def timed_write(root, n, tree, **kw):
+        t0 = time.perf_counter()
+        out = orig_save(root, n, tree, **kw)
+        writes.append(dict(step=n, s=time.perf_counter() - t0,
+                           bytes=_dir_bytes(out)))
+        return out
+
+    def timed_snapshot(self, n, tree):
+        t0 = time.perf_counter()
+        orig_snap(self, n, tree)
+        snaps.append(dict(step=n, s=time.perf_counter() - t0))
+
+    def timed_restore(root, template, **kw):
+        held = torch.cuda.memory_allocated()   # the failed state is dropped
+        t0 = time.perf_counter()
+        out = orig_restore(root, template, **kw)
+        torch.cuda.synchronize()
+        restores.append(dict(step=out[1], s=time.perf_counter() - t0,
+                             allocated_before_gib=held / 2**30))
+        return out
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ck.save, ck.AsyncCheckpointer.save, ft.restore = (
+        timed_write, timed_snapshot, timed_restore)
+    t0 = time.perf_counter()
+    try:
+        state, history = ft.run_resilient(
+            train_step=timed_step, state=box.pop(), batches=iter(stream),
+            ckpt_root=str(CKPT_DIR), ckpt_every=RESILIENT_EVERY,
+            fail_at={RESILIENT_FAIL: RuntimeError("injected")},
+            max_steps=RESILIENT_STEPS)
+        loop_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        final = int(state.step)
+        # [placement]: the last checkpoint back through the host mesh
+        mesh = make_host_mesh()
+        sh = Resolver(mesh).tree_shardings(state, TTL.state_axes(axes))
+        host = ck._tree_map(lambda t: None, state)
+        restored, at = orig_restore(str(CKPT_DIR), host)
+        t1 = time.perf_counter()
+        placed = ck.reshard_on_load(restored, sh)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t1
+        del restored
+        same = all(p.device == mesh.devices[0, 0] and torch.equal(p, t)
+                   for p, t in zip(_leaves(placed), _leaves(state)))
+        del placed
+    finally:
+        ck.save, ck.AsyncCheckpointer.save, ft.restore = (
+            orig_save, orig_snap, orig_restore)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ran = [e["step"] for e in execs]
+    want_runs = [0, 1, 2, 2, 3]     # 3 fails before its step, 2 reruns
+    check(final == RESILIENT_STEPS and ran == want_runs
+          and [r["step"] for r in restores] == [2]
+          and len(history) == len(want_runs)
+          and np.isfinite(history).all(),
+          f"resilient: final step {final}, step executions {ran}, restores "
+          f"{restores}, history {history}")
+    want = cfg.microbatches * LM_TRAIN_LAYERS * 2
+    check(all(e["b6"] == want for e in execs),
+          f"resilient: B6 launches a step execution "
+          f"{[e['b6'] for e in execs]}, expected {want}")
+    check(at == RESILIENT_STEPS and same,
+          f"placement: reshard_on_load of the step-{at} checkpoint != the "
+          "final state")
+    ms = [e["ms"] for e in execs]
+    out = dict(layers=cfg.n_layers, step_executions=execs, history=history,
+               final_step=final, restores=restores, snapshots=snaps,
+               writes=writes, loop_s=loop_s, peak_bytes=peak,
+               ckpt_bytes=writes[0]["bytes"], placed_equal=same,
+               place_s=place_s)
+    log(f"[resilient] run_resilient over {cfg.name}'s train step at full "
+        f"width, {cfg.n_layers} layers, {LM_TRAIN[0]}x{LM_TRAIN[1]} tokens, "
+        f"microbatches {cfg.microbatches}: ckpt_every {RESILIENT_EVERY}, "
+        f"step {RESILIENT_FAIL} fails (injected RuntimeError), max_steps "
+        f"{RESILIENT_STEPS}: step executions {ran}, restored from "
+        f"{[r['step'] for r in restores]}, final step {final}; history "
+        f"{[round(x, 4) for x in history]}; loop {loop_s:.1f} s")
+    log(f"[resilient]   a checkpoint {writes[0]['bytes'] / 1e9:.2f} GB "
+        f"({[w['step'] for w in writes]}); snapshot to host s "
+        f"{[round(x['s'], 2) for x in snaps]}, write s (background) "
+        f"{[round(w['s'], 2) for w in writes]}, restore s "
+        f"{[round(r['s'], 2) for r in restores]} (allocated before "
+        f"{[round(r['allocated_before_gib'], 2) for r in restores]} GiB); ms a "
+        f"step execution (saves excluded) {fmt_spread(spread(ms), '{:.1f}')};"
+        f" peak {peak / 2**30:.2f} GiB; B6 launches a step execution "
+        f"{[e['b6'] for e in execs]} (expected {want})")
+    log(f"[placement] host mesh {mesh.shape} on {mesh.devices[0, 0]}: the "
+        f"step-{at} checkpoint restored to the host and placed by "
+        f"reshard_on_load over tree_shardings == the final state, bit for "
+        f"bit ({len(_leaves(state))} leaves, {place_s:.2f} s)")
+    del state
+    return out
+
+
+def lm_placement(full, smokes, device):
+    """[placement]: ``tree_shardings`` of Qwen1.5-MoE-A2.7B's params (24
+    layers, shapes on ``meta``) on the host mesh, every entry None or a
+    size-1 axis; the MoE smoke's forward on the card under
+    ``use_resolver`` == without, bit for bit, with the same B6 launches and
+    the CPU run's constrain calls."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.sharding.resolver import Resolver, use_resolver
+    from repro_torch.training.optimizer import _leaves, _map
+
+    mesh = make_host_mesh()
+    check(mesh.devices[0, 0] == torch.device("cuda", 0),
+          f"placement: the host mesh is on {mesh.devices[0, 0]}")
+    r = Resolver(mesh)
+    meta, axes = TM.init_model(None, full, device="meta")
+    specs = [s.spec for s in _leaves(r.tree_shardings(meta, axes))]
+    check(all(all(mesh.shape[a] == 1 for e in sp if e is not None
+                  for a in ((e,) if isinstance(e, str) else e))
+              for sp in specs),
+          "placement: a spec names an axis of size > 1 on the 1x1 mesh")
+    cfg = smokes["moe"]
+    params, _ = TM.init_model(torch.Generator().manual_seed(SEED), cfg,
+                              device="cpu")
+    batch = {k: v for k, v in _smoke_batch(cfg).items() if k != "labels"}
+    cpu_r = Resolver(mesh)
+    with torch.no_grad(), use_resolver(cpu_r):
+        TM.forward(params, cfg, batch, remat=False)
+    p = _map(lambda t: t.to(device), params)
+    b = {k: v.to(device) for k, v in batch.items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            plain, _ = TM.forward(p, cfg, b, remat=False)
+            n_plain = ops.launch_counts["moe_gather"]
+            ops.reset_launch_counts()
+            with use_resolver(r):
+                held, _ = TM.forward(p, cfg, b, remat=False)
+            n_held = ops.launch_counts["moe_gather"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(torch.equal(plain, held) and n_plain == n_held == cfg.n_layers
+          and r.constraints == cpu_r.constraints
+          and len(r.constraints) == 2 + 2 * cfg.n_layers,
+          f"placement: the MoE smoke under use_resolver: equal "
+          f"{torch.equal(plain, held)}, B6 {n_plain} / {n_held}, "
+          f"{len(r.constraints)} constrain calls")
+    out = dict(specs=len(specs), b6_launches=n_held,
+               constrain_calls=len(r.constraints),
+               sites=sorted({c[1] for c in r.constraints}))
+    log(f"[placement] tree_shardings of {full.name}'s {len(specs)} parameter "
+        f"leaves on the 1x1 host mesh: every entry None or a size-1 axis; "
+        f"the moe smoke's forward on the card under use_resolver == without "
+        f"bit for bit, B6 {n_plain} / {n_held} launches, "
+        f"{len(r.constraints)} constrain calls (2 a forward + 2 a period "
+        f"x {cfg.n_layers}) == the CPU run's")
+    return out
+
+
+def lm_dryrun(full, serve, train):
+    """[dryrun] (host only): ``launch.dryrun.build_cell`` records of
+    Qwen1.5-MoE-A2.7B's dimensions at train_4k, prefill_32k and decode_32k
+    on the 16 x 16 virtual mesh, and train_4k under ``dp_only``; then, on a
+    1 x 1 mesh, the roofline of this run's measured LM work (the serve
+    phase's prefill and decode step, the 2-layer train step) on the H100
+    constants, beside the measured times: the share of its roofline each
+    reaches."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding.resolver import Resolver
+
+    cells = {}
+    for shape, kw in (("train_4k", {}), ("prefill_32k", {}),
+                      ("decode_32k", {}), ("train_4k", {"profile": "dp_only"})):
+        key = shape + ("/dp_only" if kw else "")
+        t0 = time.perf_counter()
+        rec = DR.build_cell(full.name, shape, cfg=full, multi_pod=False, **kw)
+        rec["build_s"] = time.perf_counter() - t0
+        cells[key] = rec
+        t, pd = rec["roofline_terms_s"], rec["per_device"]
+        log(f"[dryrun] {full.name} {key} on {rec['mesh']} ({rec['n_chips']} "
+            f"chips): per device {pd['traced_flops'] / 1e12:.3f} TFLOP, "
+            f"{pd['traced_bytes'] / 1e9:.2f} GB traced, collectives "
+            f"{pd['collective_bytes'] / 1e9:.3f} GB (analytic); terms s "
+            f"compute {t['compute_s']:.4f}, memory {t['memory_s']:.4f}, "
+            f"collective {t['collective_s']:.4f} -> {rec['bottleneck']}; "
+            f"useful flops {rec['useful_flops_ratio']:.3f}; args "
+            f"{rec['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f} GB "
+            f"a device; {rec['constrain_calls']} constrain calls; "
+            f"{rec['traced_ops']} ops traced in {rec['build_s']:.1f} s")
+    one = Resolver(make_production_mesh(dp=1, tp=1))
+    B, S = LM_PROMPT
+    train_cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    works = (("prefill", full, B, S, serve["prefill_ms"]),
+             ("decode", full, B, S + LM_DECODE + 1,
+              serve["decode_ms_per_step"]),
+             ("train", train_cfg, LM_TRAIN[0], LM_TRAIN[1],
+              spread(train["step_ms"][1:])["median"]))
+    shares = {}
+    for kind, cfg, b, seq, ms in works:
+        tr = DR.trace_step(cfg, kind, batch=b, seq=seq, resolver=one)
+        terms = DR.roofline(tr["flops"], tr["bytes"], 0.0)
+        bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+        shares[kind] = dict(batch=b, seq=seq, layers=cfg.n_layers,
+                            flops=tr["flops"], bytes=tr["bytes"],
+                            ops=tr["ops"], compute_ms=terms["compute_s"] * 1e3,
+                            memory_ms=terms["memory_s"] * 1e3,
+                            roofline_ms=bound_ms, measured_ms=ms,
+                            share=bound_ms / ms)
+        log(f"[dryrun] 1x1 roofline of this run's {kind} ({cfg.n_layers} "
+            f"layers, {b} x {seq}): {tr['flops'] / 1e12:.3f} TFLOP, "
+            f"{tr['bytes'] / 1e9:.2f} GB over {tr['ops']} ops -> compute "
+            f"{terms['compute_s'] * 1e3:.2f} ms, memory "
+            f"{terms['memory_s'] * 1e3:.2f} ms; measured {ms:.1f} ms: "
+            f"{bound_ms / ms:.3f} of its roofline")
+    return dict(cells=cells, shares=shares)
+
+
 def phase_lm(device):
     """[lm]: serve Qwen1.5-MoE-A2.7B's dimensions at full width and depth,
     train them at full width and two layers, run the nine smoke
@@ -3626,8 +3929,25 @@ def phase_lm(device):
     smoke = lm_smokes(smokes, device)
     seconds = time.perf_counter() - t0
     log(f"[lm] phase {seconds:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    resilient = lm_resilient(full, device)
+    resilient["phase_s"] = time.perf_counter() - t1
+    log(f"[resilient] phase {resilient['phase_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    placement = lm_placement(full, smokes, device)
+    placement["phase_s"] = time.perf_counter() - t1
+    log(f"[placement] phase {placement['phase_s']:.1f} s")
+    t1 = time.perf_counter()
+    dry = lm_dryrun(full, serve, train)
+    dry["phase_s"] = time.perf_counter() - t1
+    log(f"[dryrun] phase {dry['phase_s']:.1f} s")
     return dict(serve=serve, train=train, smokes=smoke, b6=b6,
-                seconds=seconds)
+                seconds=seconds, resilient=resilient, placement=placement,
+                dryrun=dry)
 
 
 def save_fleet_registry(params, device):

@@ -58,18 +58,19 @@ def _contract(engine, name: str):
     return contract, None
 
 
-def collect_traced(root: str, device="cpu",
+def collect_traced(root: str, device=None,
                    report: dict | None = None) -> list[Finding]:
     """The trace layer on ``device``: probe traces, contracts, shared
     memory, the recompilation harness (and on the card its graph-capture
-    half). ``report`` (a dict) receives each trace's cross-batch reduction
+    half). ``device=None`` is the card (``device.resolve_device``); the
+    CPU only when asked for. ``report`` (a dict) receives each trace's cross-batch reduction
     count and kernel launches, and the graph-capture rows."""
     from ..core import engine
     from ..device import resolve_device
     from . import harness, probe, smem, trace_rules
     from .contracts import QuantContract
 
-    device = resolve_device(None if str(device) == "cuda" else device)
+    device = resolve_device(device)
     findings: list[Finding] = []
     cfg = probe.probe_config()
     tainted = probe.batch_tainted_sizes(cfg)
@@ -154,6 +155,7 @@ class Result:
 
     def __init__(self, findings, baseline: Baseline, device=None):
         self.findings = findings
+        self.device = device
         gating = [f for f in findings if f.severity != "info"]
         self.gating = gating
         self.fresh, self.baselined, self.stale = baseline.split(gating,
@@ -168,11 +170,16 @@ class Result:
         return dict(sorted(out.items()))
 
 
-def run(root: str, *, trace: bool = True, device="cpu",
+def run(root: str, *, trace: bool = True, device=None,
         baseline_path: str = DEFAULT_BASELINE,
         report: dict | None = None) -> Result:
-    """Collect (the static layer, then the traced one on ``device``) and
-    split against the baseline. Raises BaselineError on a bad baseline."""
+    """Collect (the static layer, then the traced one on ``device``: the
+    card unless the caller asks for the CPU) and split against the
+    baseline. Raises BaselineError on a bad baseline."""
+    from ..device import resolve_device
+
+    if trace:
+        device = resolve_device(device)
     findings = collect_static(root)
     if trace:
         findings += collect_traced(root, device, report)
@@ -187,7 +194,7 @@ def _report(args, res: Result) -> str:
                f"❌ {len(res.errors)} error(s), {len(res.warnings)} "
                "warning(s) outside the baseline")
     if not args.no_trace:
-        verdict += f" (traced on {args.device})"
+        verdict += f" (traced on {res.device})"
     sections = []
     if res.fresh:
         sections.append(("Findings outside the baseline",
@@ -216,8 +223,9 @@ def main(argv=None) -> int:
                     help="fail on any non-baselined error OR warning (CI)")
     ap.add_argument("--no-trace", action="store_true",
                     help="AST/reachability only (fast; touches no device)")
-    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
-                    help="where the traced layer runs (default: cuda)")
+    ap.add_argument("--device", default=None, choices=("cpu", "cuda"),
+                    help="where the traced layer runs (default: the card; "
+                         "without one the run raises)")
     ap.add_argument("--root", default=repo_root(),
                     help="repo root (default: inferred from this file)")
     ap.add_argument("--baseline", default=DEFAULT_BASELINE,
@@ -239,7 +247,7 @@ def main(argv=None) -> int:
         return 2
 
     if args.write_baseline:
-        dev = None if args.no_trace else args.device
+        dev = None if args.no_trace else res.device
         keep = [e for e in Baseline.load(args.baseline).entries
                 if e.get("device", dev) != dev]
         new = Baseline.from_findings(

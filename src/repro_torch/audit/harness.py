@@ -59,7 +59,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def check_recompilation(root: str, device="cpu") -> list[Finding]:
+def check_recompilation(root: str, device=None) -> list[Finding]:
     """``recompile``: first-call tracking and the plan cache flat across a
     second pass (queue_sparse: its gate keys)."""
     device = resolve_device(device)

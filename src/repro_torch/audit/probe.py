@@ -191,8 +191,9 @@ def _plan(cfg):
                                cfg.compressed)
 
 
-def probe_params(plan: engine.LayerPlan, device="cpu"):
+def probe_params(plan: engine.LayerPlan, device=None):
     """Zero params matching the plan (pool slots are empty dicts)."""
+    device = resolve_device(device)
     z = functools.partial(torch.zeros, dtype=torch.float32, device=device)
     params: list[dict] = [{} for _ in range(plan.n_layers)]
     for cp in plan.convs:
@@ -203,12 +204,14 @@ def probe_params(plan: engine.LayerPlan, device="cpu"):
     return params
 
 
-def probe_thresholds(plan: engine.LayerPlan, device="cpu"):
+def probe_thresholds(plan: engine.LayerPlan, device=None):
+    device = resolve_device(device)
     return tuple(torch.ones((), dtype=torch.float32, device=device)
                  for _ in range(plan.n_layers))
 
 
-def probe_images(cfg: engine.SNNConfig, B: int = B_PROBE, device="cpu"):
+def probe_images(cfg: engine.SNNConfig, B: int = B_PROBE, device=None):
+    device = resolve_device(device)
     return torch.zeros((B, cfg.input_hw, cfg.input_hw, cfg.input_c),
                        dtype=torch.float32, device=device)
 
@@ -223,7 +226,7 @@ def _geometry(cp, cfg):
 # ---------------------------------------------------------------------------
 
 def trace_backend(backend_name: str, cfg: engine.SNNConfig | None = None,
-                  B: int = B_PROBE, device="cpu", root: str | None = None):
+                  B: int = B_PROBE, device=None, root: str | None = None):
     """The trace of the engine's batched plan (``engine.batch_runner``)
     for one traced backend."""
     cfg = cfg or probe_config()
@@ -235,7 +238,7 @@ def trace_backend(backend_name: str, cfg: engine.SNNConfig | None = None,
 
 
 def trace_sparse_pieces(cfg: engine.SNNConfig | None = None,
-                        B: int = B_PROBE, device="cpu",
+                        B: int = B_PROBE, device=None,
                         root: str | None = None) -> dict:
     """The host-dispatch backend's per-stage pieces, each traced alone.
 
@@ -279,7 +282,7 @@ def trace_sparse_pieces(cfg: engine.SNNConfig | None = None,
 
 
 def trace_train_step(cfg: engine.SNNConfig | None = None,
-                     B: int = B_PROBE, device="cpu",
+                     B: int = B_PROBE, device=None,
                      root: str | None = None) -> dict:
     """Traces of the direct-training path (``training.surrogate``).
 
@@ -315,7 +318,7 @@ def trace_train_step(cfg: engine.SNNConfig | None = None,
     }
 
 
-def trace_quant_kernels(cfg: engine.SNNConfig | None = None, device="cpu",
+def trace_quant_kernels(cfg: engine.SNNConfig | None = None, device=None,
                         root: str | None = None) -> dict:
     """Traces of every int8-weight path, checked against QuantContract:
     B3's int path (``ops.fused_spike_accum(impl="sparse", weight_bits=8)``:
@@ -370,7 +373,7 @@ def trace_quant_kernels(cfg: engine.SNNConfig | None = None, device="cpu",
         }
 
 
-def trace_kernels(cfg: engine.SNNConfig | None = None, device="cpu",
+def trace_kernels(cfg: engine.SNNConfig | None = None, device=None,
                   root: str | None = None) -> dict:
     """The counterpart of the reference's ``trace_pallas_kernels``: each
     kernel of B1, B3 and B4 through its dispatcher (``kernels.ops``) — its

@@ -22,7 +22,7 @@ lists/tuples (indices), with tensors or arrays at the leaves; a tensor is
 saved as its host numpy copy. ``restore`` puts each leaf on its template
 leaf's device and dtype when the template leaf is a tensor, and returns the
 numpy array otherwise. :func:`reshard_on_load` places a restored tree's
-leaves onto the devices given for them.
+leaves onto the devices or shardings given for them.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import os
 import shutil
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -97,7 +98,17 @@ def _tree_map(fn, tree):
 
 
 def _hash(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
+    """sha256[:16] of the array's bytes (the reference's digest), read in
+    place rather than through a ``tobytes`` copy."""
+    data = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def _hashes(arrays) -> list[str]:
+    """``_hash`` of each array, on worker threads (sha256 releases the GIL,
+    so a checkpoint of many large leaves hashes on several cores)."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return list(ex.map(_hash, arrays))
 
 
 def _committed_steps(root: str) -> list[int]:
@@ -118,6 +129,7 @@ def save(root: str, step: int, tree, *, process_index: int = 0,
     paths = sorted(flat)
     mine = [p for i, p in enumerate(paths) if i % num_processes == process_index]
 
+    digests = dict(zip(paths, _hashes([flat[p] for p in paths])))
     shard_file = f"shard_{process_index:05d}.npz"
     np.savez(os.path.join(tmp, shard_file),
              **{p.replace("/", "|"): flat[p] for p in mine})
@@ -130,7 +142,7 @@ def save(root: str, step: int, tree, *, process_index: int = 0,
                 "shape": list(flat[p].shape),
                 "dtype": str(flat[p].dtype),
                 "shard": f"shard_{paths.index(p) % num_processes:05d}.npz",
-                "hash": _hash(flat[p]),
+                "hash": digests[p],
             }
             for p in paths
         },
@@ -191,12 +203,12 @@ def restore(root: str, template, *, step: int | None = None,
             shards = {}
             for shard in {m["shard"] for m in manifest["leaves"].values()}:
                 shards[shard] = np.load(os.path.join(path, shard))
-            flat = {}
-            for p, meta in manifest["leaves"].items():
-                arr = shards[meta["shard"]][p.replace("/", "|")]
-                if verify_hashes and _hash(arr) != meta["hash"]:
-                    raise IOError(f"hash mismatch for {p}")
-                flat[p] = arr
+            flat = {p: shards[meta["shard"]][p.replace("/", "|")]
+                    for p, meta in manifest["leaves"].items()}
+            if verify_hashes:
+                for p, h in zip(flat, _hashes(flat.values())):
+                    if h != manifest["leaves"][p]["hash"]:
+                        raise IOError(f"hash mismatch for {p}")
             return _unflatten_like(template, flat), s
         except Exception as e:  # noqa: BLE001 — any corruption => try older
             last_err = e
@@ -209,10 +221,14 @@ def reshard_on_load(tree, placements):
     devices, dtypes kept.
 
     ``placements`` has ``tree``'s structure; each of its leaves is a device
-    (a ``torch.device`` or its name) or a mesh (``parallel.DataMesh``), whose
-    first device takes the leaf: the sharded runners replicate params from
-    there to each shard's device.
+    (a ``torch.device`` or its name), a mesh (``parallel.DataMesh``), whose
+    first device takes the leaf (the sharded runners replicate params from
+    there to each shard's device), or a ``sharding.NamedSharding``, which
+    lays the leaf out on its mesh (``NamedSharding.place``: the reference's
+    ``jax.device_put(x, sharding)``).
     """
+    from ..sharding.resolver import NamedSharding
+
     where = _flatten(placements)
     paths = set(_flatten(tree))
     if paths != set(where):
@@ -222,6 +238,8 @@ def reshard_on_load(tree, placements):
             f"{sorted(set(where) - paths)}")
 
     def place(leaf, p):
+        if isinstance(p, NamedSharding):
+            return p.place(torch.as_tensor(leaf))
         device = p.devices[0] if hasattr(p, "devices") else torch.device(p)
         return torch.as_tensor(leaf, device=device)
 

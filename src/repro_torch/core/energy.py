@@ -19,6 +19,7 @@ E_BF16_MAC = 0.25       # dense multiply-accumulate (the CNN above 8 bits)
 E_INT8_MAC = 0.07       # quantized multiply-accumulate (the CNN at <= 8 bits)
 E_HBM_BYTE = 15.0       # off-chip memory read/write per byte
 E_VMEM_BYTE = 0.8       # on-chip memory per byte
+E_REG_BYTE = 0.05       # register file per byte
 
 # --- the reference's TPU v5e machine constants (pricing-model inputs, not
 # H100 figures): the CNN's latency roofline and the SNN's clock ----------

@@ -65,7 +65,7 @@ from __future__ import annotations
 
 import functools
 import re
-from typing import NamedTuple
+from typing import NamedTuple, Protocol
 
 import numpy as np
 import torch
@@ -394,6 +394,28 @@ def _segment_occupancy(fmt: AEFormat, raster: torch.Tensor) -> torch.Tensor:
 # no host-sized tensor) has ``capture_refusal`` None; one that cannot says
 # why, and serving refuses it on the card at registration. (Serving refuses
 # ``host_dispatch`` backends, i.e. queue_sparse, on every device.)
+
+class Backend(Protocol):
+    """A compute unit for one conv stage of the layer pipeline (the
+    reference's ``Backend``, in its batched form: the port runs batched
+    plans only).
+
+    ``conv_layer_batch`` receives the static :class:`ConvPlan`, the
+    layer's weights, bias and threshold, and the incoming activity: a
+    (B, T, H, W, C) spike ``raster`` or a (B, H, W, C) ``analog``
+    constant-current image (exactly one is not None). It returns the
+    emitted (B, T, H', W', C_out) raster and the per-sample
+    :class:`LayerStats`. Neuron dynamics come from
+    ``neuron.get_neuron_model(cfg.mode)`` so every backend stays in step.
+    """
+
+    name: str
+    supports_batch: bool
+    capture_refusal: str | None
+
+    def conv_layer_batch(self, cp, w, b, vth, cfg, raster, analog):
+        ...
+
 
 class DenseBackend:
     """Dense-dynamics reference: one SAME conv of a stage's spike raster.

@@ -24,6 +24,9 @@ import torch.nn.functional as F
 BF16 = torch.bfloat16
 F32 = torch.float32
 
+Params = dict
+Axes = dict
+
 
 def normal(gen, shape, device, dtype=F32):
     """Standard normal draws from ``gen`` on ``device`` (``gen`` must live
@@ -132,3 +135,10 @@ def softplus(x):
     """``jax.nn.softplus``: ``logaddexp(x, 0)``, without torch's linear
     branch above 20."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def shard_hint(x, spec_fn):
+    """``spec_fn(x)`` when given (a sharding constraint), else ``x``."""
+    if spec_fn is None:
+        return x
+    return spec_fn(x)

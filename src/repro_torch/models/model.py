@@ -13,9 +13,10 @@ Parameters are nested dicts of tensors whose leaves under ``decoder`` /
 functions run on the device of the tensors they are given; ``init_model``
 and ``init_cache`` take an explicit ``device`` (``None``: the card).
 
-The reference's sharding constraints (``constrain``) are the identity
-while no resolver is active; the port has no placement resolver, so it
-calls none.
+``forward`` (and every block, :mod:`.transformer`) calls
+``sharding.resolver.constrain`` where the reference does: the identity
+while no resolver is active; under ``use_resolver`` each call resolves
+and records its spec and returns its tensor unchanged.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..sharding.resolver import constrain
 from ..training.optimizer import _map
 from . import attention as attn_mod
 from . import ssm as ssm_mod
@@ -195,14 +197,17 @@ def forward(params, cfg: ArchConfig, batch, *, remat: bool = True):
     if cfg.enc_dec:
         enc = _encode(params, cfg, batch["src_embeddings"], remat)
         h = embed_apply(params["embed"], batch["tokens"])
+        h = constrain(h, ("batch", None, "act_embed"))
         cross_kv = _cross_kv(cfg, enc)
     else:
         h = _embed_inputs(params, cfg, batch)
+        h = constrain(h, ("batch", None, "act_embed"))
     h, _, aux = transformer.stack_apply(
         params["decoder"], h, cfg, mode="train", cross_kv=cross_kv,
         remat=remat)
     h = norm_apply(params["final_norm"], h, cfg.norm)
-    return _logits(params, cfg, h), aux
+    logits = constrain(_logits(params, cfg, h), ("batch", None, "vocab"))
+    return logits, aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, remat: bool = True):

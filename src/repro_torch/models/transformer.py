@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.resolver import constrain
 from ..training.optimizer import _leaves, _map
 from . import attention as attn
 from . import ssm, xlstm
@@ -132,6 +133,7 @@ def block_apply(p, h, cfg, layer_idx: int, *, mode: str = "train",
             new_cache = cache
 
     h = h + y
+    h = constrain(h, ("batch", None, "act_embed"))
 
     if "cross" in p and cross_kv is not None:
         xq = norm_apply(p["norm_x"], h, cfg.norm)
@@ -148,6 +150,7 @@ def block_apply(p, h, cfg, layer_idx: int, *, mode: str = "train",
     elif "ffn" in p:
         x2 = norm_apply(p["norm2"], h, cfg.norm)
         h = h + ffn_apply(p["ffn"], x2, cfg.act)
+    h = constrain(h, ("batch", None, "act_embed"))
     return h, new_cache, aux
 
 

@@ -246,7 +246,7 @@ def test_gate_syncs_pass_only_marked_and_allowed():
     """queue_sparse's gate pulls two scalars at lines marked 'the
     occupancy gate': clean under its contract's 'occupancy-gate', an error
     under a contract that allows nothing."""
-    gate = probe.trace_sparse_pieces()["engine._sparse_gate"]
+    gate = probe.trace_sparse_pieces(device="cpu")["engine._sparse_gate"]
     syncs = [r for r in gate if r.packet in ("item", "_local_scalar_dense")]
     assert len(syncs) == 2
     assert all(r.file == "src/repro_torch/core/engine.py" for r in syncs)
@@ -592,8 +592,9 @@ def test_second_pass_flat_on_real_engine_runner():
     plan = probe._plan(cfg)
     runner = engine.batch_runner(cfg, "dense")
     assert harness.second_pass_flat(
-        runner, probe.probe_params(plan), probe.probe_thresholds(plan),
-        probe.probe_images(cfg, 2))
+        runner, probe.probe_params(plan, "cpu"),
+        probe.probe_thresholds(plan, "cpu"),
+        probe.probe_images(cfg, 2, "cpu"))
 
 
 def test_second_pass_flat_catches_growing_cache_like_reference():
@@ -669,18 +670,22 @@ def repo_traces():
         if name == "queue_sparse":
             continue
         out[f"backend:{name}"] = (jprobe.trace_backend(name, jcfg),
-                                  probe.trace_backend(name, cfg), 0, False)
-    jp, tp = jprobe.trace_sparse_pieces(jcfg), probe.trace_sparse_pieces(cfg)
+                                  probe.trace_backend(name, cfg, device="cpu"), 0,
+                                  False)
+    jp = jprobe.trace_sparse_pieces(jcfg)
+    tp = probe.trace_sparse_pieces(cfg, device="cpu")
     declared = engine.BACKEND_CONTRACTS["queue_sparse"].cross_batch_reductions
     for jname, tname in SPARSE_PIECES.items():
         out[tname] = (jp[jname], tp[tname],
                       declared if jname.endswith("_stats_fn") else 0, False)
-    jt, tt = jprobe.trace_train_step(jcfg), probe.trace_train_step(cfg)
+    jt = jprobe.trace_train_step(jcfg)
+    tt = probe.trace_train_step(cfg, device="cpu")
     loss = "training.loss_fn[count+rate_reg]"
     out[loss] = (jt[loss], tt[loss],
                  engine.BACKEND_CONTRACTS["dense"].train_loss_reductions,
                  False)
-    jq, tq = jprobe.trace_quant_kernels(), probe.trace_quant_kernels()
+    jq = jprobe.trace_quant_kernels()
+    tq = probe.trace_quant_kernels(device="cpu")
     for name in jq:
         out[name] = (jq[name], tq[name], 0, True)
     return out
@@ -725,7 +730,7 @@ def test_train_step_trace_under_declared_fires():
     forward: the rule walks the surrogate dynamics; the full step (its
     backward contracts the batch into every weight gradient) keeps dtype
     and host-sync discipline."""
-    traces = probe.trace_train_step()
+    traces = probe.trace_train_step(device="cpu")
     loss = traces["training.loss_fn[count+rate_reg]"]
     declared = engine.BACKEND_CONTRACTS["dense"].train_loss_reductions
     tainted = frozenset({B, B * probe.PROBE_T})
@@ -739,7 +744,7 @@ def test_train_step_trace_under_declared_fires():
 
 
 def test_kernel_traces_clean_on_the_cpu():
-    for name, trace in probe.trace_kernels().items():
+    for name, trace in probe.trace_kernels(device="cpu").items():
         assert trace_rules.check_dtypes(name, trace, ROOT) == [], name
         assert trace_rules.check_host_sync(name, trace, ROOT) == [], name
 
@@ -767,6 +772,25 @@ def test_cli_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--strict"])
+
+
+def test_run_default_device_is_the_card(monkeypatch):
+    """The library entry points run on the card unless asked for the CPU:
+    ``cli.run`` without a device, with CUDA hidden, raises
+    ``resolve_device``'s error."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.run(ROOT, trace=True)
+    plan = probe._plan(probe.probe_config())
+    for call in (lambda: cli.collect_traced(ROOT),
+                 lambda: harness.check_recompilation(ROOT),
+                 lambda: probe.probe_params(plan),
+                 lambda: probe.probe_thresholds(plan),
+                 lambda: probe.probe_images(probe.probe_config()),
+                 lambda: probe.trace_quant_kernels(),
+                 lambda: probe.trace_kernels()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_committed_baseline_entries_are_justified():

@@ -5,7 +5,8 @@ async writes and GC, NamedTuple state, the SNN params tree with empty pool
 slots) on tensor trees, then the on-disk format across the two packages:
 a tree the JAX package saves restores in the port bit-equal, and the
 reverse, for plain trees and for ``(params, AdamWState)`` with empty pool
-slots. (``reshard_on_load`` is held in ``tests/test_torch_parallel.py``.)
+slots. (``reshard_on_load`` onto devices and a ``DataMesh`` is held in
+``tests/test_torch_parallel.py``; onto the resolver's shardings here.)
 """
 import json
 import os
@@ -196,3 +197,34 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
         assert port_manifest == json.load(f)
     assert sorted(os.listdir(tmp_path / "port")) == \
         sorted(os.listdir(tmp_path / "ref"))
+
+
+def test_elastic_reshard_on_load(tmp_path):
+    """Restore, then place onto a (degenerate 1x1) host mesh through the
+    resolver's shardings — the elastic path, as the reference's test; and
+    onto a 2 x 2 virtual CPU mesh, where each leaf becomes its shards."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.sharding.resolver import Resolver, ShardedTensor
+
+    tree = _tree()
+    ck.save(str(tmp_path), 1, tree)
+    restored, _ = ck.restore(str(tmp_path), tree)
+    for mesh in (make_host_mesh("cpu"),
+                 make_production_mesh(dp=2, tp=2, device="cpu")):
+        r = Resolver(mesh)
+        shardings = {
+            "a": r.sharding_for((4, 8), ("embed", "mlp")),
+            "nested": {"b": r.sharding_for((3,), (None,))},
+        }
+        placed = ck.reshard_on_load(restored, shardings)
+        np.testing.assert_array_equal(np.asarray(placed["a"]),
+                                      np.asarray(tree["a"]))
+        np.testing.assert_array_equal(np.asarray(placed["nested"]["b"]),
+                                      tree["nested"]["b"].numpy())
+        if mesh.devices.size > 1:
+            assert isinstance(placed["a"], ShardedTensor)
+            assert placed["a"].shards[0, 1].shape == (2, 4)
+        else:
+            assert isinstance(placed["a"], torch.Tensor)

@@ -1293,3 +1293,116 @@ def test_audit_on_card(cuda):
     rows = smem.compare_launchers(smem.launcher_cases(gathers, B5_SHAPES),
                                   sm_count)
     assert rows and [r for r in rows if not r["equal"]] == []
+
+
+def _moe_smoke():
+    from repro_torch.models import model as TM
+    from repro_torch.models.moe import MoEConfig
+
+    return TM.ArchConfig(
+        name="moe-smoke", family="moe", n_layers=2, d_model=64, n_heads=4,
+        kv_heads=4, d_ff=0, vocab=128, act="swiglu",
+        moe=MoEConfig(n_experts=8, top_k=2, expert_d_ff=96, shared_d_ff=96,
+                      every_k_layers=1), remat="none")
+
+
+@pytest.mark.cuda
+def test_host_mesh_lands_on_the_card(cuda):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh()
+    assert mesh.shape == {"data": 1, "model": 1}
+    assert mesh.devices[0, 0] == torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_place_and_reshard_on_load_put_params_on_the_card(cuda, tmp_path):
+    """``tree_shardings`` of the MoE smoke's params on the host mesh, then
+    ``NamedSharding.place`` and ``reshard_on_load`` of a restored
+    checkpoint: every leaf on cuda:0, bit-equal to the saved tree."""
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.sharding.resolver import Resolver
+    from repro_torch.training.optimizer import _leaves
+
+    cfg = _moe_smoke()
+    params, axes = TM.init_model(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    shardings = Resolver(make_host_mesh()).tree_shardings(params, axes)
+    placed = ck._unflatten_like(params, ck._flatten(shardings),
+                                leaf=lambda t, s: s.place(t))
+    ck.save(str(tmp_path), 1, params)
+    restored, _ = ck.restore(str(tmp_path), params)
+    loaded = ck.reshard_on_load(restored, shardings)
+    for a, b, c in zip(_leaves(params), _leaves(placed), _leaves(loaded)):
+        assert b.device == c.device == torch.device("cuda", 0)
+        assert torch.equal(a, b.cpu()) and torch.equal(a, c.cpu())
+
+
+@pytest.mark.cuda
+def test_moe_forward_under_a_resolver_is_bit_equal_on_the_card(cuda):
+    """The MoE smoke's forward on the card under ``use_resolver`` (host
+    mesh) equals its forward without, bit for bit (deterministic
+    ``index_add_``), with B6 launched twice in each and the five constrain
+    sites recorded per period."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.sharding.resolver import Resolver, use_resolver
+
+    cfg = _moe_smoke()
+    params, _ = TM.init_model(torch.Generator(device=cuda).manual_seed(0),
+                              cfg, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128, (2, 16)).astype(np.int32)).to(cuda)
+    r = Resolver(make_host_mesh())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            plain, _ = TM.forward(params, cfg, {"tokens": toks})
+            n_plain = ops.launch_counts["moe_gather"]
+            ops.reset_launch_counts()
+            with use_resolver(r):
+                held, _ = TM.forward(params, cfg, {"tokens": toks})
+            n_held = ops.launch_counts["moe_gather"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert n_plain == n_held == 2
+    assert torch.equal(plain, held)
+    assert len(r.constraints) == 2 + 2 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_run_resilient_on_the_card_survives_a_failure(cuda, tmp_path):
+    """``run_resilient`` over the MoE smoke's train step on the card: the
+    injected failure at step 3 restores the step-2 checkpoint onto the
+    card, and the run ends at step 6 with finite losses; B6 launches 2 a
+    step execution."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import model as TM
+    from repro_torch.runtime.fault_tolerance import run_resilient
+    from repro_torch.training import train_loop as TTL
+    from repro_torch.training.optimizer import _leaves
+
+    cfg = _moe_smoke()
+    params, _ = TM.init_model(torch.Generator(device=cuda).manual_seed(0),
+                              cfg, device=cuda)
+    step = TTL.make_train_step(cfg, base_lr=1e-3, warmup=2, total_steps=20)
+    launches = []
+
+    def counted(state, batch):
+        ops.reset_launch_counts()
+        out = step(state, batch)
+        launches.append(ops.launch_counts["moe_gather"])
+        return out
+
+    state, history = run_resilient(
+        train_step=counted, state=TTL.init_state(params),
+        batches=iter(TokenStream(cfg.vocab, 16, 4, device=cuda)),
+        ckpt_root=str(tmp_path), ckpt_every=2,
+        fail_at={3: RuntimeError("injected")}, max_steps=6)
+    assert int(state.step) == 6 and len(history) == 7
+    assert np.isfinite(history).all()
+    assert launches == [2] * 7
+    assert all(t.device.type == "cuda" for t in _leaves(state))

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from repro.sharding import resolver as jres
@@ -170,3 +171,221 @@ def test_batch_partition_spec_equals_the_reference(mesh_name):
             want = jres.batch_partition_spec(jmesh, shape)
             assert tuple(got) == tuple(want), shape
             assert isinstance(got, P) and len(got) == len(shape)
+
+
+# ---------------------------------------------------------------------------
+# Placement: tree_shardings over the model's trees, constrain, NamedSharding
+# ---------------------------------------------------------------------------
+
+def _paths(tree, leaf):
+    """{checkpoint path: leaf(x)} of a tree."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+
+    return {path: leaf(x) for path, x in _flatten(tree).items()}
+
+
+def _ref_trees(cfg):
+    """The reference's parameter, train-state and cache trees (shapes
+    only, ``jax.eval_shape``) with their logical axes."""
+    from repro.models import model as JM
+    from repro.training import train_loop as JTL
+
+    captured = {}
+
+    def init(k):
+        p, a = JM.init_model(k, cfg)
+        captured["axes"] = a
+        return p
+
+    params = jax.eval_shape(init, jax.random.PRNGKey(0))
+    axes = captured["axes"]
+    state = jax.eval_shape(JTL.init_state, params)
+    return {"params": (params, axes),
+            "state": (state, JTL.state_axes(axes)),
+            "caches": (JM.cache_specs(cfg, 8, 64), JM.cache_axes(cfg))}
+
+
+def _port_trees(tcfg):
+    from repro_torch.models import model as TM
+    from repro_torch.training import train_loop as TTL
+
+    params, axes = TM.init_model(None, tcfg, device="meta")
+    return {"params": (params, axes),
+            "state": (TTL.init_state(params), TTL.state_axes(axes)),
+            "caches": (TM.cache_specs(tcfg, 8, 64), TM.cache_axes(tcfg))}
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ["dense-7b", "dense-20b", "moe-14b",
+                                  "recurrent-125m"])
+def test_tree_shardings_equal_the_reference(arch, multi_pod):
+    """``Resolver.tree_shardings`` over every FULL configuration's params,
+    train state and decode caches on the production mesh (the port's
+    virtual ``meta`` mesh) gives the reference's ``spec_for`` leaf for
+    leaf, over a stub of the same mesh shape."""
+    from _smoke_archs import FULL
+    from _torch_archs import TORCH_FULL
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    assert mesh.devices.size == (512 if multi_pod else 256)
+    ours = Resolver(mesh)
+    theirs = jres.Resolver(SimpleNamespace(shape=dict(mesh.shape)))
+    ref, port = _ref_trees(FULL[arch]), _port_trees(TORCH_FULL[arch])
+    for name in ("params", "state", "caches"):
+        rtree, raxes = ref[name]
+        want = _paths(jres.map_with_axes(
+            lambda leaf, ax: SimpleNamespace(spec=theirs.spec_for(leaf.shape,
+                                                                  ax)),
+            rtree, raxes), lambda s: tuple(s.spec))
+        ptree, paxes = port[name]
+        got = _paths(ours.tree_shardings(ptree, paxes),
+                     lambda s: tuple(s.spec))
+        assert got == want, name
+        shapes = _paths(ptree, lambda t: tuple(t.shape))
+        assert shapes == _paths(rtree, lambda x: tuple(x.shape)), name
+
+
+SMOKE_NAMES = ["dense-tied", "dense-untied", "dense-gelu-ln",
+               "dense-geglu-hd", "moe", "hybrid", "xlstm", "enc-dec-audio",
+               "vlm"]
+
+
+@pytest.mark.parametrize("arch", SMOKE_NAMES)
+def test_constrain_sequence_equals_the_reference(arch, monkeypatch):
+    """The forward's constrain calls: the reference's, recorded by a
+    test-only patch of its ``Resolver.constrain`` (eager, periods
+    unrolled), equal the port's ``Resolver.constraints``, shape, logical
+    axes and spec, call for call, on a 4 x 2 stub mesh."""
+    import dataclasses
+
+    import _lm_parity as LP
+    from _smoke_archs import SMOKES
+    from _torch_archs import TORCH_SMOKES
+    from repro.models import model as JM
+    from repro_torch.models import model as TM
+    from repro_torch.sharding.resolver import use_resolver
+
+    cfg = dataclasses.replace(SMOKES[arch], scan_layers=False)
+    jp, _ = JM.init_model(jax.random.PRNGKey(0), cfg)
+    tp = TM.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    batch = LP.make_batch(cfg)
+    seen = []
+
+    def record(self, x, logical):
+        seen.append((tuple(x.shape), tuple(logical),
+                     tuple(self.spec_for(x.shape, logical))))
+        return x
+
+    monkeypatch.setattr(jres.Resolver, "constrain", record)
+    stub = _stub("data_model")
+    with jres.use_resolver(jres.Resolver(stub)):
+        JM.forward(jp, cfg, LP.to_jax(batch), remat=False)
+    ours = Resolver(stub)
+    with use_resolver(ours):
+        TM.forward(tp, TORCH_SMOKES[arch], LP.to_torch(batch), remat=False)
+    got = [(s, lg, tuple(sp)) for s, lg, sp in ours.constraints]
+    assert got == seen
+    n_periods = cfg.n_layers // len(cfg.block_pattern)
+    n_blocks = cfg.n_layers + (cfg.n_enc_layers if cfg.enc_dec else 0)
+    assert n_periods >= 1 and len(got) == 2 + 2 * n_blocks
+
+
+@pytest.mark.parametrize("arch", ["dense-tied", "moe", "enc-dec-audio"])
+def test_outputs_under_a_resolver_equal_outputs_without(arch):
+    """A constraint changes no value: the port's forward under
+    ``use_resolver`` (16 x 16 virtual mesh) is bit-equal to it without,
+    its ``constrain`` hands back the very tensor, and the reference's
+    forward under its own resolver on a 1 x 1 mesh equals its forward
+    without. (The reference's ``make_host_mesh`` builds ``Explicit`` axes
+    on this jax, on which ``with_sharding_constraint`` raises; the mesh
+    here has the ``Auto`` axes the reference's constrain needs.)"""
+    import dataclasses
+
+    import _lm_parity as LP
+    from _smoke_archs import SMOKES
+    from _torch_archs import TORCH_SMOKES
+    from repro.models import model as JM
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.sharding.resolver import constrain, use_resolver
+
+    cfg = dataclasses.replace(SMOKES[arch], scan_layers=False)
+    jp, _ = JM.init_model(jax.random.PRNGKey(0), cfg)
+    tp = TM.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    batch = LP.make_batch(cfg)
+    tcfg = TORCH_SMOKES[arch]
+    plain = TM.forward(tp, tcfg, LP.to_torch(batch), remat=False)[0]
+    r = Resolver(make_production_mesh())
+    with use_resolver(r):
+        held = TM.forward(tp, tcfg, LP.to_torch(batch), remat=False)[0]
+        x = torch.zeros((4, 3, 8))
+        assert constrain(x, ("batch", None, "act_embed")) is x
+        assert constrain(x, ("batch",)) is x      # ranks differ: identity
+    assert torch.equal(plain, held) and len(r.constraints) > 2
+    jplain = JM.forward(jp, cfg, LP.to_jax(batch), remat=False)[0]
+    host = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    with jres.use_resolver(jres.Resolver(host)):
+        jheld = JM.forward(jp, cfg, LP.to_jax(batch), remat=False)[0]
+    np.testing.assert_array_equal(np.asarray(jplain), np.asarray(jheld))
+
+
+def test_active_and_use_resolver_nest_like_the_reference():
+    from repro_torch.sharding.resolver import active, use_resolver
+
+    a, b = Resolver(_stub("data")), Resolver(_stub("data_model"))
+    assert active() is None and jres.active() is None
+    with use_resolver(a):
+        assert active() is a
+        with use_resolver(b):
+            assert active() is b
+        with use_resolver(None):
+            assert active() is None
+        assert active() is a
+    assert active() is None
+
+
+def test_constrain_on_a_mesh_without_model_raises_like_the_reference():
+    """C4: an ``embed`` dimension already on ``data`` sends the second pass
+    to a ``model`` axis the mesh lacks: ``KeyError`` in both packages,
+    through ``constrain`` too."""
+    ours, theirs = Resolver(_stub("data")), jres.Resolver(_stub("data"))
+    with pytest.raises(KeyError):
+        theirs.spec_for((8, 4), ("embed", None))
+    with pytest.raises(KeyError):
+        ours.constrain(torch.zeros((8, 4)), ("embed", None))
+
+
+def test_mesh_and_named_sharding_place_a_tensor():
+    """A 2 x 2 virtual CPU mesh: ``shard_shape``, each position's slice
+    (``data`` splits dim 0, ``model`` dim 1; a replicated axis copies),
+    ``full()`` and ``__array__`` give the tensor back; a 1 x 1 mesh places
+    the plain tensor."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.resolver import Mesh, NamedSharding
+
+    mesh = Mesh(np.array([["cpu", "cpu"], ["cpu", "cpu"]], dtype=object),
+                ("data", "model"))
+    assert mesh.shape == {"data": 2, "model": 2} and mesh.devices.size == 4
+    assert list(mesh.shape) == ["data", "model"]
+    x = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6)
+    s = NamedSharding(mesh, P("data", "model"))
+    assert s.shard_shape((4, 6)) == (2, 3)
+    placed = s.place(x)
+    assert torch.equal(placed.shards[1, 0], x[2:, :3])
+    assert torch.equal(placed.full(), x)
+    np.testing.assert_array_equal(np.asarray(placed), x.numpy())
+    rep = NamedSharding(mesh, P(None, ("data", "model"))).place(x[:, :4])
+    assert rep.shards[1, 1].shape == (4, 1)
+    assert torch.equal(rep.shards[0, 1], x[:, 1:2])
+    row = NamedSharding(mesh, P("model")).place(x)
+    assert torch.equal(row.shards[0, 1], row.shards[1, 1])   # data copies
+    assert row.shards[0, 1].data_ptr() != row.shards[1, 1].data_ptr()
+    with pytest.raises(ValueError, match="does not divide"):
+        NamedSharding(mesh, P("data")).place(torch.zeros(3))
+    host = make_host_mesh("cpu")
+    one = NamedSharding(host, P("data", "model")).place(x)
+    assert isinstance(one, torch.Tensor) and torch.equal(one, x)
+    r = Resolver(mesh)
+    assert tuple(r.sharding_for((4, 6), ("embed", "mlp")).spec) == \
+        ("data", "model")
