@@ -21,6 +21,16 @@ Design rules (pinned by ``tests/test_torch_obs.py``):
   the serving layer records around its captured region, never inside it.
 * **Deterministic under test** — ``enable(clock=...)`` injects the time
   source used for every span/event timestamp.
+* **On the profiler's clock** — while a ``torch.profiler`` session
+  records, every span is also a ``record_function`` range of its name,
+  tracing on or off (``span()`` checks one module attribute for it).
+  With neither on, ``span()`` stays the shared no-op.
+
+A caller that already holds a region's clock reads records it with
+``Tracer.record(name, t0, t1)``; ``split(clock, phases)`` cuts a stretch into
+telescoping phases at shared reads, always on, whose regions become spans
+and profiler ranges when either is on (``obs/phase.py``; the served step,
+``serve/runtime.py``, and ``docs/OBSERVABILITY_TORCH.md``).
 
 Setting ``REPRO_TORCH_TRACE=<path>`` in the environment enables tracing at
 import time and writes the JSONL trace (spans + events + a trailing
@@ -36,14 +46,17 @@ from typing import Any, Callable, Dict, List, Optional
 
 from . import export
 from .metrics import DEFAULT_QS, Histogram, Metrics, percentiles
-from .trace import NOOP_SPAN, EventRecord, NoopSpan, Span, SpanRecord, Tracer
+from .phase import NO_SPLIT, NoSplit, Split
+from .trace import (NOOP_SPAN, EventRecord, NoopSpan, Span, SpanRecord,
+                    Tracer, _profiler)
 
 __all__ = [
-    "enable", "disable", "enabled", "reset", "span", "event", "counter",
-    "gauge", "observe", "spans", "events", "metrics_snapshot",
-    "save_jsonl", "save_chrome_trace", "percentiles", "Histogram",
-    "Metrics", "Tracer", "SpanRecord", "EventRecord", "Span", "NoopSpan",
-    "NOOP_SPAN", "DEFAULT_QS", "ENV_TRACE",
+    "enable", "disable", "enabled", "reset", "span", "split", "event",
+    "counter", "gauge", "observe", "spans", "events",
+    "metrics_snapshot", "save_jsonl", "save_chrome_trace", "percentiles",
+    "Histogram", "Metrics", "Tracer", "SpanRecord", "EventRecord", "Span",
+    "NoopSpan", "Split", "NoSplit", "NO_SPLIT", "NOOP_SPAN",
+    "DEFAULT_QS", "ENV_TRACE",
 ]
 
 ENV_TRACE = "REPRO_TORCH_TRACE"
@@ -79,10 +92,23 @@ def reset() -> None:
 
 
 def span(name: str, **attrs: Any):
-    """Context manager timing a named region. No-op when disabled."""
+    """Context manager timing a named region. Disabled, it is a profiler
+    range alone while a ``torch.profiler`` session records, else the
+    shared no-op."""
     if not _enabled:
+        if _profiler._is_profiler_enabled:
+            return Span(None, name, attrs)
         return NOOP_SPAN
     return _tracer.span(name, **attrs)
+
+
+def split(clock: Callable[[], float], phases, prefix: str = "") -> Split:
+    """A :class:`Split` starting now on ``clock``: its regions become
+    spans while tracing is on, and profiler ranges while a
+    ``torch.profiler`` session records."""
+    return Split(clock, phases, prefix=prefix,
+                 tracer=_tracer if _enabled else None,
+                 spans=_enabled or _profiler._is_profiler_enabled)
 
 
 def event(name: str, **attrs: Any) -> None:

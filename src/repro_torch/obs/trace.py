@@ -8,10 +8,20 @@ thread trace concurrently; finished spans are appended to one shared,
 lock-guarded buffer.
 
 The clock is injectable (any ``() -> float`` in seconds) so tests can pin
-exact durations; the default is ``time.perf_counter``.  Everything here is
-plain host-side Python: a call made while a CUDA graph is being captured
-runs once, at capture, and never at a replay, so callers record around a
-captured region, never inside it.
+exact durations; the default is ``time.perf_counter``.  A caller that
+already holds a region's clock reads opens and closes its span at them
+(:meth:`Span.begin` / :meth:`Span.end`), or records a past one
+(:meth:`Tracer.record`), so a span and a counter built from the same reads
+agree exactly.  Everything here is plain host-side Python: a call made
+while a CUDA graph is being captured runs once, at capture, and never at a
+replay, so callers record around a captured region, never inside it.
+
+The profiler mirror: while a ``torch.profiler`` session records (read from
+``torch.autograd.profiler._is_profiler_enabled``, a module attribute, so
+the check is one attribute read), a :class:`Span` is also a
+``record_function`` range of the same name, opened in :meth:`Span.begin`
+and closed in :meth:`Span.end`, on the profiler's clock beside the
+device's operations. A span with no tracer is that range alone.
 """
 from __future__ import annotations
 
@@ -19,7 +29,9 @@ import itertools
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
+
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -73,12 +85,16 @@ class EventRecord:
 
 
 class Span:
-    """A live span; use as a context manager. ``set()`` adds attributes
-    after entry (e.g. a batch size known only mid-span)."""
+    """A live span; use as a context manager, or open and close it at given
+    clock readings (:meth:`begin` / :meth:`end`). ``set()`` adds attributes
+    after entry (e.g. a batch size known only mid-span). With no tracer it
+    records nothing and is a profiler range alone."""
 
-    __slots__ = ("_tracer", "name", "attrs", "sid", "parent", "depth", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "sid", "parent", "depth", "_t0",
+                 "_range")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
+    def __init__(self, tracer: Optional["Tracer"], name: str,
+                 attrs: Dict[str, Any]):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
@@ -86,33 +102,58 @@ class Span:
         self.parent = -1
         self.depth = 0
         self._t0 = 0.0
+        self._range = None
 
     def set(self, **attrs: Any) -> "Span":
         self.attrs.update(attrs)
         return self
 
-    def __enter__(self) -> "Span":
+    def begin(self, t0: float) -> "Span":
+        """Open the span at the clock reading ``t0``: it becomes the parent
+        of spans opened on this thread until :meth:`end`; while a profiler
+        records, its range opens here."""
         tr = self._tracer
-        stack = tr._stack()
-        self.sid = next(tr._ids)
-        self.parent = stack[-1].sid if stack else -1
-        self.depth = len(stack)
-        stack.append(self)
-        self._t0 = tr.clock()
+        if tr is not None:
+            stack = tr._stack()
+            self.sid = next(tr._ids)
+            self.parent = stack[-1].sid if stack else -1
+            self.depth = len(stack)
+            stack.append(self)
+            self._t0 = t0
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.name)
+            self._range.__enter__()
         return self
 
-    def __exit__(self, *exc: Any) -> bool:
+    def end(self, t1: float) -> Optional[SpanRecord]:
+        """Close the span (and its range) at the clock reading ``t1`` and
+        record it."""
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         tr = self._tracer
-        t1 = tr.clock()
+        if tr is None:
+            return None
         stack = tr._stack()
         if stack and stack[-1] is self:
             stack.pop()
         elif self in stack:  # tolerate out-of-order exits
             stack.remove(self)
-        tr._record(SpanRecord(
+        rec = SpanRecord(
             sid=self.sid, parent=self.parent, name=self.name,
             t0=self._t0, t1=t1, depth=self.depth,
-            tid=threading.get_ident(), attrs=self.attrs))
+            tid=threading.get_ident(), attrs=self.attrs)
+        tr._record(rec)
+        return rec
+
+    def _now(self) -> float:
+        return self._tracer.clock() if self._tracer is not None else 0.0
+
+    def __enter__(self) -> "Span":
+        return self.begin(self._now())
+
+    def __exit__(self, *exc: Any) -> bool:
+        self.end(self._now())
         return False
 
 
@@ -158,6 +199,19 @@ class Tracer:
 
     def span(self, name: str, **attrs: Any) -> Span:
         return Span(self, name, attrs)
+
+    def record(self, name: str, t0: float, t1: float,
+               **attrs: Any) -> SpanRecord:
+        """Record a finished span whose clock reads the caller already
+        holds (past: no profiler range); its parent is the span open on
+        this thread, if any."""
+        stack = self._stack()
+        rec = SpanRecord(
+            sid=next(self._ids), parent=stack[-1].sid if stack else -1,
+            name=name, t0=t0, t1=t1, depth=len(stack),
+            tid=threading.get_ident(), attrs=attrs)
+        self._record(rec)
+        return rec
 
     def event(self, name: str, **attrs: Any) -> None:
         rec = EventRecord(name=name, ts=self.clock(),

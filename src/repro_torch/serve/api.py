@@ -43,7 +43,7 @@ class InferResponse:
     queue_wait_s: float          # admission -> batch launch
     service_s: float             # the bucket's execute wall time
     batch_form_s: float = 0.0    # model pick + take + pad, up to launch
-    price_s: float = 0.0         # batch pricing + response assembly
+    price_s: float = 0.0         # the six pulls + batch pricing + responses
     pad_fraction: float = 0.0    # padded slots / bucket for this batch
     step_total_s: float = 0.0    # the whole step() wall time (telescoped)
 
@@ -56,7 +56,11 @@ class InferResponse:
     def breakdown(self) -> dict:
         """The per-request time breakdown, in waterfall order. The three
         step parts telescope: ``batch_form_s + service_s + price_s ==
-        step_total_s`` up to float rounding."""
+        step_total_s`` up to float rounding. Finer, the runtime cuts each
+        step into seven phases (``serve.runtime.PHASES``, summed per bucket
+        in ``stats_summary()["phase_s"]``): ``execute_s`` is ``copy_in +
+        launch + sync_wait`` and ``price_s`` is ``pull + price +
+        respond``."""
         return {
             "queue_wait_s": self.queue_wait_s,
             "batch_form_s": self.batch_form_s,

@@ -24,6 +24,16 @@ bucket:
 
 The :class:`ModelRegistry` LRU-bounds the handles themselves.
 
+:meth:`ModelHandle.run_bucket` takes the runtime's step (an ``obs.Split``)
+and cuts its execution into three phases on the runtime's clock:
+``copy_in``, ``launch`` and ``sync_wait``, each plan's replay a ``shard``
+region with its ``card``. Each :class:`GraphPlan` holds a pair of CUDA
+timing events, allocated once, that bound its replay on the card when the
+caller splits; after the host sync, ``run_bucket`` adds the time between
+them to the step's device seconds for that card. No event is allocated a
+step, and no host sync is added to the declared one
+(``docs/OBSERVABILITY_TORCH.md``).
+
 Tracing (``repro_torch.obs``) uses the reference's names: ``serve.plan_hit``
 / ``serve.plan_compile`` per plan lookup, a ``serve.aot_compile`` span
 around building a plan (on the card: the eager run and the capture; every
@@ -68,19 +78,33 @@ def _slice_copies(logits, stats, n_valid: int):
 
 
 class EagerPlan:
-    """A bucket's plan on the CPU: the engine's batched call, run eagerly."""
+    """A bucket's plan on the CPU: the engine's batched call, run eagerly.
+    Its input is a view of the host array, so a split's ``copy_in`` holds
+    nothing of it and the run is its ``launch``; nothing is timed on the
+    device."""
 
     def __init__(self, runner, params, thresholds):
         self.runner, self.params, self.thresholds = runner, params, thresholds
         self.launches: dict = {}
 
-    def replay(self, images):
+    def replay(self, images, split=obs.NO_SPLIT):
         """Run the full bucket of host images; its outputs, all rows."""
+        split.to("launch")
         return self.runner(self.params, self.thresholds,
                            torch.from_numpy(images))
 
-    def __call__(self, images, n_valid: int):
-        return engine.slice_valid(*self.replay(images), n_valid)
+    def mark_end(self, split) -> None:
+        pass
+
+    def add_device_seconds(self, device_s: dict, card: int = 0) -> None:
+        pass
+
+    def __call__(self, images, n_valid: int, split=obs.NO_SPLIT):
+        split.open("shard", card=0)
+        split.to("launch")
+        out = engine.slice_valid(*self.replay(images), n_valid)
+        split.close()
+        return out
 
 
 class GraphPlan:
@@ -92,6 +116,16 @@ class GraphPlan:
     holds the kernel launches the capture recorded (``ops.launch_counts``
     moved by the wrappers during capture): every replay runs exactly these.
     A capture that fails raises; nothing falls back to eager execution.
+
+    ``ev_start`` and ``ev_end``, a pair of timing events allocated here
+    once, bound each replay made for a split (``split.device`` not None)
+    on ``stream``, the stream current on the plan's device when it was
+    built, which serving replays on: ``ev_start`` is recorded just before
+    the input's host-to-device copy, ``ev_end`` (:meth:`mark_end`) after
+    the last work the plan enqueues there (the valid-prefix copies; in a
+    :class:`ShardedPlan`, the shard's replay, and on the first card the
+    gather). The span between them counts any gap inside it as busy, so
+    it bounds the card's busy time from above.
     """
 
     def __init__(self, runner, params, thresholds, shape, device, pool):
@@ -113,18 +147,42 @@ class GraphPlan:
         with torch.cuda.graph(self.graph, pool=pool, stream=side):
             self.logits, self.stats = runner(params, thresholds, self.images)
         self.launches = {k: ops.launch_counts[k] - before[k] for k in before}
+        self.stream = torch.cuda.current_stream(device)
+        self.ev_start = torch.cuda.Event(enable_timing=True)
+        self.ev_end = torch.cuda.Event(enable_timing=True)
 
-    def replay(self, images):
+    def replay(self, images, split=obs.NO_SPLIT):
         """Copy host images in and replay; the static outputs, all rows
         (a later replay overwrites them)."""
+        split.to("copy_in")
         # host images go to the static input through pinned memory
         self.staging.copy_(torch.from_numpy(images))
+        if split.device is not None:
+            self.ev_start.record(self.stream)
         self.images.copy_(self.staging, non_blocking=True)
+        split.to("launch")
         self.graph.replay()
         return self.logits, self.stats
 
-    def __call__(self, images, n_valid: int):
-        return _slice_copies(*self.replay(images), n_valid)
+    def mark_end(self, split) -> None:
+        """Record ``ev_end`` after the work enqueued on this card so far,
+        when the replay was timed for ``split``."""
+        if split.device is not None:
+            self.ev_end.record(self.stream)
+
+    def add_device_seconds(self, device_s: dict, card: int = 0) -> None:
+        """Add the last timed replay's seconds between its events to
+        ``device_s[card]``; the card must be done with it (a host sync, or
+        a sync of a card whose stream waited on this one's)."""
+        device_s[card] = (device_s.get(card, 0.0)
+                          + self.ev_start.elapsed_time(self.ev_end) * 1e-3)
+
+    def __call__(self, images, n_valid: int, split=obs.NO_SPLIT):
+        split.open("shard", card=0)
+        out = _slice_copies(*self.replay(images, split), n_valid)
+        self.mark_end(split)
+        split.close()
+        return out
 
 
 class ShardedPlan:
@@ -135,7 +193,14 @@ class ShardedPlan:
     their outputs are gathered to ``device`` (the mesh's first) in batch
     order, so the result equals the unsharded plan's bit for bit (the
     engine's mask contract). The gathered tensors are new, so the valid
-    prefix needs no copy.
+    prefix needs no copy. Card ``i`` is the shard's position in the mesh
+    (on ``data_mesh(n)``, the card's index).
+
+    The gather runs each copy on its source card's stream after that
+    stream waited for the first card's, and the first card's stream waits
+    for each copy. So the other cards' end events are recorded before the
+    gather (their spans leave the wait out), the first card's after it,
+    and a host sync of the first card finds every card's events done.
     """
 
     def __init__(self, shards, device):
@@ -145,11 +210,24 @@ class ShardedPlan:
             for name, n in plan.launches.items():
                 self.launches[name] = self.launches.get(name, 0) + n
 
-    def __call__(self, images, n_valid: int):
+    def add_device_seconds(self, device_s: dict) -> None:
+        for card, plan in enumerate(self.shards):
+            plan.add_device_seconds(device_s, card)
+
+    def __call__(self, images, n_valid: int, split=obs.NO_SPLIT):
         k = images.shape[0] // len(self.shards)
-        outs = [plan.replay(images[i * k:(i + 1) * k])
-                for i, plan in enumerate(self.shards)]
-        return engine.slice_valid(*gather(outs, self.device), n_valid)
+        outs = []
+        for i, plan in enumerate(self.shards):
+            split.open("shard", card=i)
+            outs.append(plan.replay(images[i * k:(i + 1) * k], split))
+            split.close()
+        split.to("launch")
+        first, *rest = self.shards
+        for plan in rest:
+            plan.mark_end(split)
+        out = engine.slice_valid(*gather(outs, self.device), n_valid)
+        first.mark_end(split)
+        return out
 
 
 class ModelHandle:
@@ -287,9 +365,11 @@ class ModelHandle:
         return tuple(self._plans)
 
     def adopt_plan(self, bucket: int, plan) -> None:
-        """Install a ready plan for ``bucket`` — ``plan(images, n_valid) ->
-        (logits, stats)`` of the valid prefix, for a (B, H, W, C) float32
-        numpy bucket, as :class:`GraphPlan` and :class:`EagerPlan` are. It
+        """Install a ready plan for ``bucket`` — ``plan(images, n_valid,
+        split) -> (logits, stats)`` of the valid prefix, for a (B, H, W, C)
+        float32 numpy bucket, with ``add_device_seconds(device_s)``, as
+        :class:`GraphPlan` and :class:`EagerPlan` are (``build_plan`` makes
+        one). It
         enters the same LRU but does **not** bump ``compile_count``: an
         adopted plan is a cache hit by construction, so the warmup guard
         keeps working (``serve/persist.py`` restores a checkpoint's plans
@@ -299,23 +379,38 @@ class ModelHandle:
         obs.counter("serve.plan_adopt")
         self._evict()
 
-    def run_bucket(self, images, n_valid: int):
+    def run_bucket(self, images, n_valid: int, split=obs.NO_SPLIT):
         """Execute one padded (B, H, W, C) bucket of host images; return the
         valid prefix (see the engine's mask contract) as tensors that no
         later bucket overwrites.
 
         Synchronizes the device before returning, so the caller's clock
         read after it covers the bucket's execution.
+
+        ``split`` (an ``obs.Split``, the runtime's step) is cut into three
+        phases, each summed over shards: ``copy_in`` (the plan lookup, the
+        contiguous copy, the pinned staging copy and the host-to-device
+        enqueue), ``launch`` (the graph replay, the valid-prefix copies
+        and on a mesh the gather's enqueue) and ``sync_wait`` (the one
+        host sync, then the device-time reads), left running for the
+        caller to end; each plan's replay is a ``shard`` region with its
+        ``card``. On the card, ``split.device[card]`` gains each replay's
+        seconds between its timing events (:class:`GraphPlan`).
         """
+        split.to("copy_in")
         images = np.ascontiguousarray(images, np.float32)
         bucket = images.shape[0]
-        out = self.plan_for(bucket)(images, n_valid)
+        plan = self.plan_for(bucket)
+        out = plan(images, n_valid, split)
         self.replay_count[bucket] += 1
+        split.to("sync_wait")
         if self.device.type == "cuda":
             # audit: allow[host-sync] serve block-until-ready: latency
             # metering must not timestamp the response before the device
             # is done
             torch.cuda.synchronize(self.device)
+            if split.device is not None:
+                plan.add_device_seconds(split.device)
         return out
 
     def warmup(self, buckets=DEFAULT_BUCKETS) -> None:

@@ -1,13 +1,26 @@
 """The serving loop: admission queue -> dynamic batcher -> per-request meters.
 
-Port of ``repro.serve.runtime``, traced under the
-reference's names (``repro_torch.obs``): the ``serve.execute`` and
-``serve.price`` spans, ``serve.bucket_occupancy`` and ``serve.pad_fraction``
-histograms, ``serve.batches`` and ``serve.requests`` counters, and one
+Port of ``repro.serve.runtime``, traced under the reference's names
+(``repro_torch.obs``): the ``serve.execute`` and ``serve.price`` spans,
+``serve.bucket_occupancy`` and ``serve.pad_fraction`` histograms,
+``serve.batches`` and ``serve.requests`` counters, and one
 ``serve.request`` event a response whose waterfall segments telescope to
-its ``latency_s``, beside ``serve.request_latency_s``. Every clock read goes through ``ServeRuntime.clock`` (wall time by
-default); a load generator on a virtual clock passes its own arrival times
-and batch launch times (``submit(arrival_s=)``, ``step(now=)``).
+its ``latency_s``, beside ``serve.request_latency_s``. Every clock read
+goes through ``ServeRuntime.clock`` (wall time by default); a load
+generator on a virtual clock passes its own arrival times and batch launch
+times (``submit(arrival_s=)``, ``step(now=)``).
+
+Each step is cut into seven phases (:data:`PHASES`: ``batch_form``,
+``copy_in``, ``launch``, ``sync_wait``, ``pull``, ``price``,
+``respond``) at shared reads of that clock, through an ``obs.Split`` the
+step hands to ``ModelHandle.run_bucket``. The phases telescope to the
+step; ``stats_summary()`` sums them per bucket (``phase_s``), with each
+card's device time between a replay's timing events (``device_s``),
+always on. With tracing on they are the ``serve.step`` span tree
+(:data:`STEP_SPANS`), and while a ``torch.profiler`` session records,
+``record_function`` ranges of the same names
+(``docs/OBSERVABILITY_TORCH.md``).
+
 Each :meth:`ServeRuntime.step` forms ONE batch: it picks the next model
 (the oldest request of a model other than the one just served, so one
 model's stream cannot starve the rest), gathers up to ``max_bucket`` of its
@@ -31,6 +44,22 @@ from ..study.stages import price_record
 from .api import InferRequest, InferResponse, ServeError
 from .batching import BucketPolicy
 from .registry import ModelRegistry
+
+#: A served step's phases, in order; they telescope to ``step_total_s``.
+#: ``copy_in + launch + sync_wait`` is ``service_s`` and ``pull + price +
+#: respond`` is ``price_s``.
+PHASES = ("batch_form", "copy_in", "launch", "sync_wait", "pull", "price",
+          "respond")
+#: The spans of a traced step (``obs``) and the profiler ranges it mirrors:
+#: ``serve.step`` holds ``serve.batch_form``, ``serve.execute`` (which
+#: holds ``serve.copy_in``, one ``serve.shard`` a card, each holding its
+#: ``serve.copy_in`` and ``serve.launch``, then, on a mesh, the gather's
+#: ``serve.launch``, and ``serve.sync_wait``), ``serve.pull``,
+#: ``serve.price`` and ``serve.respond``.
+STEP_SPANS = ("serve.step", "serve.batch_form", "serve.execute",
+              "serve.copy_in", "serve.shard", "serve.launch",
+              "serve.sync_wait", "serve.pull", "serve.price",
+              "serve.respond")
 
 
 class ServeRuntime:
@@ -57,6 +86,8 @@ class ServeRuntime:
         self.n_served = 0
         self.n_padded_slots = 0
         self.bucket_histogram: collections.Counter = collections.Counter()
+        self.phase_s: dict = {}      # bucket -> {phase: seconds}
+        self.device_s: dict = {}     # bucket -> {card: device seconds}
 
     # -- admission ---------------------------------------------------------
 
@@ -141,7 +172,23 @@ class ServeRuntime:
         """
         if not self.queue:
             return []
-        t_step0 = self.clock()
+        split = obs.split(self.clock, PHASES, "serve.")
+        try:
+            return self._step(split, now)
+        except BaseException:
+            split.abort()
+            raise
+
+    def _step(self, split, now: float | None) -> list[InferResponse]:
+        # the step is cut into PHASES at shared clock reads (obs.Split):
+        # [t_step0, t_exec0) batch_form; [t_exec0, t_exec1) execute,
+        # whose copy_in, launch and sync_wait run_bucket cuts; [t_exec1,
+        # t_done) pull, price and respond. The phases telescope to the
+        # step total, and the three response fields to it too (pinned by
+        # tests/test_torch_obs.py and tests/test_torch_serve_phases.py)
+        t_step0 = split.t
+        split.open("step")
+        split.to("batch_form")
         model = self._next_model()
         try:
             handle = self.registry.get(model)
@@ -168,22 +215,18 @@ class ServeRuntime:
             taken = taken[:bucket]
         padded = self.policy.pad(np.stack([r.image for r in taken]), bucket)
 
-        # three telescoping clock reads bound the step's phases exactly:
-        # [t_step0, t_exec0) batch-form, [t_exec0, t_exec1) execute,
-        # [t_exec1, t_done) price + response assembly. Their sum IS the
-        # step total, so the per-request breakdown accounts for the whole
-        # measured latency (pinned by tests/test_torch_obs.py).
-        t_exec0 = self.clock()
+        t_exec0 = split.to(None)
         launch = t_exec0 if now is None else now
-        with obs.span("serve.execute", model=model, bucket=bucket,
-                      valid=len(taken)):
-            # synchronizes the device before it returns
-            logits, stats = handle.run_bucket(padded, len(taken))
-        t_exec1 = self.clock()
+        split.open("execute", model=model, bucket=bucket, valid=len(taken))
+        # synchronizes the device before it returns
+        logits, stats = handle.run_bucket(padded, len(taken), split)
+        t_exec1 = split.to(None)
+        split.close()
         service_s = t_exec1 - t_exec0
         batch_form_s = t_exec0 - t_step0
         pad_fraction = (bucket - len(taken)) / bucket
 
+        split.to("pull")
         self._pending[model] -= len(taken)
         self.n_batches += 1
         self.n_served += len(taken)
@@ -207,17 +250,18 @@ class ServeRuntime:
         # price the whole batch in ONE price_record call (repricing is
         # elementwise per sample, so row i of a batch pricing bit-equals
         # pricing row i alone)
+        split.to("price", model=model, valid=len(taken))
         batch_record = StatsRecord(events_in=ev, spikes_out=sp, add_ops=ao,
                                    queue_words=qw, overflow=ovf)
-        with obs.span("serve.price", model=model, valid=len(taken)):
-            e = price_record(batch_record, input_hw=handle.cfg.input_hw,
-                             compressed=handle.cfg.compressed,
-                             vmem_resident=handle.vmem_resident)
+        e = price_record(batch_record, input_hw=handle.cfg.input_hw,
+                         compressed=handle.cfg.compressed,
+                         vmem_resident=handle.vmem_resident)
         # audit: allow[host-sync] pricing ran on the host copies above:
         # these are CPU tensors, no device is waited for
         energy_j = e.total_j.numpy()
         model_latency_s = e.latency_s.numpy()  # audit: allow[host-sync]
 
+        split.to("respond")
         responses = []
         for i, req in enumerate(taken):
             row = StatsRecord(
@@ -235,9 +279,11 @@ class ServeRuntime:
                 pad_fraction=pad_fraction))
         # the price window closes only after responses exist, so these two
         # fields are assigned post-construction (the dataclass is mutable)
-        t_done = self.clock()
+        t_done = split.to(None)
+        split.close(model=model, bucket=bucket, valid=len(taken))
         price_s = t_done - t_exec1
         step_total_s = t_done - t_step0
+        self._add_phases(bucket, split)
         for resp in responses:
             resp.price_s = price_s
             resp.step_total_s = step_total_s
@@ -255,6 +301,19 @@ class ServeRuntime:
                     latency_s=wf_queue + batch_form_s + service_s + price_s)
                 obs.observe("serve.request_latency_s", resp.latency_s)
         return responses
+
+    def _add_phases(self, bucket: int, split) -> None:
+        """Add a finished step's phase and device seconds to the bucket's
+        running sums (``stats_summary``)."""
+        acc = self.phase_s.get(bucket)
+        if acc is None:
+            acc = self.phase_s[bucket] = dict.fromkeys(PHASES, 0.0)
+        for k, v in split.seconds.items():
+            acc[k] += v
+        if split.device:
+            dev = self.device_s.setdefault(bucket, {})
+            for card, v in split.device.items():
+                dev[card] = dev.get(card, 0.0) + v
 
     def run_until_drained(self, max_steps: int = 100_000):
         """Step until the queue is empty; responses in completion order.
@@ -282,7 +341,22 @@ class ServeRuntime:
     # -- service counters ----------------------------------------------------
 
     def stats_summary(self) -> dict:
-        """Service counters: batches, padding overhead, bucket usage."""
+        """Service counters, cumulative since the runtime was built:
+        batches, padding overhead, bucket usage (``bucket_histogram``:
+        steps by bucket), and where the steps' time went:
+
+        - ``phase_s``: ``{bucket: {phase: seconds}}``, the seven
+          :data:`PHASES` of every step of that bucket, on the runtime's
+          clock; a step's seven sum to its ``step_total_s``;
+        - ``device_s``: ``{bucket: {card: seconds}}``, each card's device
+          time between a replay's timing events (from its input copy to
+          its last work, gaps inside counted busy: an upper bound), on
+          the card only (empty on the CPU).
+
+        Every value is a fresh copy, so a snapshot taken earlier never
+        changes as more steps run; two snapshots' difference is what ran
+        between them (the benchmark's readers diff one taken before a
+        window against one taken after it)."""
         slots = self.n_served + self.n_padded_slots
         return {
             "batches": self.n_batches,
@@ -290,4 +364,7 @@ class ServeRuntime:
             "padded_slot_fraction":
                 (self.n_padded_slots / slots) if slots else 0.0,
             "bucket_histogram": dict(sorted(self.bucket_histogram.items())),
+            "phase_s": {b: dict(v) for b, v in sorted(self.phase_s.items())},
+            "device_s": {b: dict(sorted(v.items()))
+                         for b, v in sorted(self.device_s.items())},
         }

@@ -194,13 +194,18 @@ def test_virtual_clock_arrivals_and_launch_time():
     rt.submit(imgs[2], "m", arrival_s=50.0)
     resp = sorted(rt.step(now=102.5), key=lambda r: r.rid)
     assert [r.queue_wait_s for r in resp] == [101.0, 2.5, 52.5]
-    # four clock reads a step: 101 step start, 102 launch, 103 executed,
-    # 104 priced
-    assert resp[0].batch_form_s == 1.0 and resp[0].service_s == 1.0
-    assert resp[0].price_s == 1.0 and resp[0].step_total_s == 3.0
+    # eight clock reads a step (its seven phases, serve.runtime.PHASES; the
+    # CPU plan has no copy-in of its own): 101 step start, 102 launch, 103
+    # plan looked up, 104 run, 105 executed (the sync wait), 106 pulled,
+    # 107 priced, 108 responded
+    assert resp[0].batch_form_s == 1.0 and resp[0].service_s == 3.0
+    assert resp[0].price_s == 3.0 and resp[0].step_total_s == 7.0
+    phases = rt.stats_summary()["phase_s"][4]
+    assert phases == dict(batch_form=1.0, copy_in=1.0, launch=1.0,
+                          sync_wait=1.0, pull=1.0, price=1.0, respond=1.0)
     rt.submit(imgs[3], "m", arrival_s=104.0)
-    (r,) = rt.step()                             # launch at clock() = 106
-    assert r.queue_wait_s == 2.0
+    (r,) = rt.step()                             # launch at clock() = 110
+    assert r.queue_wait_s == 6.0
 
 
 # --- the load generator against the reference's -----------------------------
@@ -235,21 +240,38 @@ def _counter(step=1e-3):
     def clock():
         state["t"] += step
         return state["t"]
-    return clock
+    return clock, state
+
+
+def _device_time(rt, state, seconds=2e-3):
+    """Each bucket ``rt`` runs advances ``state``'s clock by ``seconds``."""
+    handle = rt.registry.get("m")
+    run = handle.run_bucket
+
+    def timed(*args):
+        state["t"] += seconds
+        return run(*args)
+    handle.run_bucket = timed
 
 
 @pytest.mark.parametrize("rate", [200.0, 2000.0])
 def test_open_loop_matches_reference_on_an_injected_clock(monkeypatch, rate):
-    """Both open loops with the same counter clock (a fixed step per read)
-    in the runtime and in place of the bench modules' perf_counter: the
-    same Poisson arrivals meet the same service times, so the bucket
-    histograms, the virtual wall and every latency agree exactly."""
-    jclock, tclock = _counter(), _counter()
+    """Both open loops on a counter clock (a fixed step per read) in place
+    of the bench modules' perf_counter, each runtime reading it without
+    moving it (the port's step reads its clock more often than the
+    reference's: it splits the step into seven phases), and each bucket
+    run moving it by a fixed device time: the same Poisson arrivals meet
+    the same service times, so the bucket histograms, the virtual wall and
+    every latency agree exactly."""
+    (jclock, jstate), (tclock, tstate) = _counter(), _counter()
     monkeypatch.setattr(jbench, "time",
                         types.SimpleNamespace(perf_counter=jclock))
     monkeypatch.setattr(tbench, "time",
                         types.SimpleNamespace(perf_counter=tclock))
-    jrt, trt = _registries(clocks=[jclock, tclock])
+    jrt, trt = _registries(clocks=[lambda: jstate["t"],
+                                   lambda: tstate["t"]])
+    _device_time(jrt, jstate)
+    _device_time(trt, tstate)
     imgs = images(40, HW, C, seed=6)
     j = jbench.open_loop(jrt, "m", imgs, rate_rps=rate, seed=3)
     t = tbench.open_loop(trt, "m", imgs, rate_rps=rate, seed=3)

@@ -1406,3 +1406,86 @@ def test_run_resilient_on_the_card_survives_a_failure(cuda, tmp_path):
     assert np.isfinite(history).all()
     assert launches == [2] * 7
     assert all(t.device.type == "cuda" for t in _leaves(state))
+
+
+def _served_runtime(mesh=None):
+    from repro_torch.core.snn_model import init_params
+    from repro_torch.serve import BucketPolicy, ModelRegistry, ServeRuntime
+
+    spec = "32C3-32C3-P3-64C3-64C3-P3-128C3-128C3-128C3-10"
+    params = init_params(torch.Generator().manual_seed(0), spec, 32, 3,
+                         device=torch.device("cuda", 0))
+    cfg = engine.SNNConfig(spec=spec, input_hw=32, input_c=3, T=4, depth=64,
+                           mode="mttfs_cont")
+    registry = ModelRegistry(device="cuda:0")
+    handle = registry.register("m", params, [1.0] * len(params), cfg)
+    rt = ServeRuntime(registry, BucketPolicy((1, 64)), mesh=mesh)
+    handle.warmup((64,))
+    imgs = np.random.default_rng(9).random((64, 32, 32, 3)).astype(
+        np.float32)
+    return rt, imgs
+
+
+def _serve_steps(rt, imgs, n):
+    """``n`` bucket-64 steps; each step's (service_s, {card: device s})."""
+    out = []
+    for _ in range(n):
+        before = rt.stats_summary()["device_s"].get(64, {})
+        for im in imgs:
+            rt.submit(im, "m")
+        (r, *_) = rt.step()
+        after = rt.stats_summary()["device_s"][64]
+        out.append((r.service_s, {c: s - before.get(c, 0.0)
+                                  for c, s in after.items()}))
+    return out
+
+
+@pytest.mark.cuda
+def test_served_step_times_its_replay_on_the_card(cuda):
+    """A bucket-64 step on the card: ``device_s[64][0]``, the span between
+    the replay's timing events, is positive and within the host's
+    ``service_s`` around it; under ``torch.profiler`` the replay's B1
+    kernels fall between the ``serve.launch`` range's start and the
+    ``serve.sync_wait`` range's end, inside ``bench.step``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    rt, imgs = _served_runtime()
+    for service_s, cards in _serve_steps(rt, imgs, 5):
+        assert list(cards) == [0]
+        assert 0 < cards[0] <= service_s
+    for im in imgs:
+        rt.submit(im, "m")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("bench.step"):
+            rt.step()
+    events = prof.profiler.kineto_results.events()
+    cpu = {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.name() in (
+                "bench.step", "serve.launch", "serve.sync_wait"):
+            cpu.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    b1 = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+          if e.device_type() == DeviceType.CUDA
+          and not e.is_user_annotation()
+          and "fused_spike_accum" in e.name()]
+    assert len(b1) >= 6, len(b1)
+    (launch,) = cpu["serve.launch"]
+    (sync,) = cpu["serve.sync_wait"]
+    (bench,) = cpu["bench.step"]
+    assert bench[0] <= launch[0] <= sync[1] <= bench[1]
+    assert all(launch[0] <= s and t <= sync[1] for s, t in b1)
+
+
+@pytest.mark.cuda
+def test_served_step_times_every_card_of_a_mesh(cards):
+    """Bucket 64 over a data mesh of every card: each card has its device
+    seconds a step, none beyond the step's ``service_s``."""
+    from repro_torch import parallel
+
+    rt, imgs = _served_runtime(parallel.data_mesh())
+    for service_s, got in _serve_steps(rt, imgs, 5):
+        assert sorted(got) == list(range(cards))
+        assert all(0 < s <= service_s for s in got.values())

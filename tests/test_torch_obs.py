@@ -384,8 +384,11 @@ def _names(o):
 
 def test_traced_serve_run_names_equal_the_reference():
     """The same small serve run (5 images, buckets (1, 4)) traced in both
-    packages records the same span, event, counter and histogram names,
-    and the same request and batch counts."""
+    packages records the same event, counter and histogram names, and the
+    same request and batch counts; the port's span names hold the
+    reference's, and beyond them exactly the served step's own phase spans
+    (``serve.runtime.STEP_SPANS`` less the reference's ``serve.execute``
+    and ``serve.price``)."""
     params_np, th = dyadic_net(SPEC, HW, C)
     imgs = np.random.default_rng(11).random((5, HW, HW, C)).astype(np.float32)
     # a config of this test's own, traced afresh: the reference counts its
@@ -415,7 +418,13 @@ def test_traced_serve_run_names_equal_the_reference():
 
     assert len(tresp) == len(jresp) == 5
     (tn, tc), (jn, jc) = _names(obs), _names(jobs)
+    tspans, jspans = tn.pop("spans"), jn.pop("spans")
     assert tn == jn
+    assert jspans <= tspans
+    from repro_torch.serve.runtime import STEP_SPANS
+
+    assert tspans - jspans == set(STEP_SPANS) - {"serve.execute",
+                                                  "serve.price"}
     assert "kernels.dispatch.fused:xla" in tc
     for key in ("serve.requests", "serve.batches"):
         assert tc[key] == jc[key]
