@@ -16,11 +16,13 @@ Phases (each one fails loudly; the script exits non-zero on any failure):
    put counts are printed.
 3. kernels — at the CIFAR-10 serve shapes (bucket 64, T=4): the fused spike
    kernel (B1) on every conv stage's real occupancy, at depth 64 and 256,
-   with the net's Gaussian weights held bit-exactly against the (c,
+   called as ``queue_pallas`` calls it (``steps`` = T, one launch), with
+   the net's Gaussian weights held bit-exactly against the (c,
    phase)-ordered oracle (``ref.fused_spike_accum_ordered_ref``, the order
    of adds the kernel keeps) and to 1e-4 against its plain PyTorch version,
    and dyadic weights bit-exactly against both the plain version and the
-   scatter oracle; the int8 head kernel (B2) at M in {1, 4, 16, 64},
+   scatter oracle; its per-sample queue statistics (events kept, dropped,
+   scalar adds) bit-exactly against the plain version's; the int8 head kernel (B2) at M in {1, 4, 16, 64},
    K=1152, N=10, and at kernel_bench's (256, 256, 256), bit-exactly, with
    its device time by profiler beside the CUDA-event time and
    ``torch._int_mm``'s; the sparse kernel (B3) on the same occupancy
@@ -270,6 +272,12 @@ details go to ``chiprun_out/chip_smoke_parallel.json``.
 runs the device and build phases, then the lm phase alone, with the
 resilient, placement and dryrun phases; no kernel line, details in
 ``chiprun_out/chip_smoke_lm.json``.
+
+    python3 chip_smoke.py --only kernels
+
+runs the device and build phases, then the kernels phase (B1, B2, B3 and
+C3) alone; no kernel line (its launch counts come from the serve phase),
+details in ``chiprun_out/chip_smoke_kernels.json``.
 """
 from __future__ import annotations
 
@@ -318,6 +326,9 @@ KERNEL_NAMES = {
     "spike_compact": ("spike_compact_kernel",),
     "moe_gather": ("moe_gather_bulk_kernel", "moe_gather_warp_kernel"),
 }
+# B1's device work in a window of B1 calls alone: its kernels and the
+# memset that zeroes its statistics
+B1_DEVICE_NAMES = KERNEL_NAMES["fused_spike_accum"] + ("Memset",)
 MOE_SHAPES = (  # (T, d, S, dtypes)
     (1024, 128, 512, ("float32", "bfloat16")),   # benchmarks/kernel_bench.py
     (16, 8, 12, ("float32", "bfloat16")),        # tests/test_kernels.py
@@ -592,6 +603,7 @@ def phase_kernels(stages, last_raster, params, device):
     import torch
 
     from repro_torch.core.quantization import quantize_symmetric
+    from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels import ref
     from repro_torch.kernels import spike_pipeline as sp
@@ -608,16 +620,25 @@ def phase_kernels(stages, last_raster, params, device):
                       W=cp.in_hw)
 
             def kernel(w=w_gauss, kw=kw):
-                return sp.fused_spike_accum_cuda(occ, w, **kw)
+                return sp.fused_spike_accum_cuda(occ, w, steps=T, **kw)
 
             def plain(w=w_gauss, kw=kw):
-                return sp.fused_spike_accum_plain(occ, w, **kw)
+                return sp.fused_spike_accum_plain(occ, w, steps=T, **kw)
 
             def library(w=w_gauss, depth=depth):
                 return dropped_conv(occ, cp, w, depth)
 
-            got, want = kernel(), plain()
+            ops.reset_launch_counts()
+            (got, *stats), (want, *want_stats) = kernel(), plain()
             torch.cuda.synchronize()
+            launches = ops.launch_counts["fused_spike_accum"]
+            check(launches == 1, f"B1 {name} depth {depth}: {launches} "
+                  "launches a call")
+            for s_name, g, x in zip(("ev", "ovf", "ops"), stats, want_stats):
+                check(torch.equal(g, x),
+                      f"B1 {name} depth {depth}: statistic {s_name} differs "
+                      f"from the plain version ({g.tolist()[:4]} vs "
+                      f"{x.tolist()[:4]} ...)")
             err = float((got - want).abs().max())
             check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
                   f"B1 {name} depth {depth}: Gaussian max |err| {err}")
@@ -626,7 +647,7 @@ def phase_kernels(stages, last_raster, params, device):
                   f"B1 {name} depth {depth}: Gaussian weights differ from "
                   "the (c, phase)-ordered oracle (max |err| "
                   f"{float((got - ordered).abs().max())})")
-            got_dy, want_dy = kernel(w_dy), plain(w_dy)
+            got_dy, want_dy = kernel(w_dy)[0], plain(w_dy)[0]
             oracle = ref.fused_spike_accum_ref(occ, w_dy, **kw)
             check(torch.equal(got_dy, oracle),
                   f"B1 {name} depth {depth}: dyadic weights differ from the "
@@ -638,21 +659,27 @@ def phase_kernels(stages, last_raster, params, device):
             b1_err = max(b1_err, err)
             events, adds, nbytes = stage_work(occ, cp, depth, w_gauss, device)
             b_ms, b_by = bound(nbytes, adds, FP32_FLOP_PER_S)
+            check(events == int(stats[0].sum()) and adds == int(
+                stats[2].to(torch.int64).sum()),
+                f"B1 {name} depth {depth}: its statistics sum to "
+                f"{int(stats[0].sum())} events and {int(stats[2].sum())} "
+                f"adds, the stage's work to {events} and {adds}")
             row = dict(stage=name, N=occ.shape[0], C_in=cp.in_c, hw=cp.in_hw,
                        C_out=cp.out_c, P=P, depth=depth,
                        events=events, adds=adds, bytes=nbytes,
+                       dropped=int(stats[1].sum()), launches=launches,
                        max_abs_err=err, ms=time_ms(kernel),
-                       device_ms=device_ms(kernel,
-                                           KERNEL_NAMES["fused_spike_accum"]),
+                       device_ms=device_ms(kernel, B1_DEVICE_NAMES),
                        plain_ms=time_ms(plain), library_ms=time_ms(library),
                        bound_ms=b_ms, bound_by=b_by)
             b1_rows.append(row)
             log(f"[kernels] B1 {name:21s} N={row['N']} C_in={cp.in_c} "
                 f"hw={cp.in_hw} C_out={cp.out_c} depth={depth} "
-                f"events={row['events']} adds={adds} | ms {row['ms']:.4f} "
+                f"events={row['events']} dropped={row['dropped']} adds={adds}"
+                f" | {launches} launch, ms {row['ms']:.4f} "
                 f"(device {row['device_ms']:.4f}) plain {row['plain_ms']:.4f} library {row['library_ms']:.4f}"
                 f" bound {b_ms:.4f} ({b_by}) | max|err| {err:.3g} vs plain, "
-                "== ordered oracle")
+                "== ordered oracle, statistics == plain")
 
     # B2: the output head at every bucket, on real spike counts
     w_out = params[-1]["w"]
@@ -780,7 +807,7 @@ def phase_b3(stages, device):
                 o, w, e_cap=e_cap, weight_bits=wb, **kw)
 
         def b1(w=w_gauss, o=occ):
-            return sp.fused_spike_accum_cuda(o, w, **kw)
+            return sp.fused_spike_accum_cuda(o, w, **kw)[0]
 
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -913,7 +940,7 @@ def phase_c3(device):
         occ = phase_occupancy(fmt, spikes(n, hw, hw, c_in)).contiguous()
         w = gauss(K, K, c_in, c_out)
         want = ref.fused_spike_accum_ordered_ref(occ, w, **kw)
-        b1 = sp.fused_spike_accum_cuda(occ, w, **kw)
+        b1, *b1_stats = sp.fused_spike_accum_cuda(occ, w, **kw)
         b3 = ss.fused_spike_accum_sparse_cuda(occ, w, **kw)
         b3q = ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=8, **kw)
         torch.cuda.synchronize()
@@ -925,10 +952,12 @@ def phase_c3(device):
         check(torch.equal(b3q, ref.fused_spike_accum_quant_ref(
             occ, w, weight_bits=8, **kw)),
             f"C3 B3 w8 {tag}: differs from the quantized oracle")
-        plain = sp.fused_spike_accum_plain(occ, w, **kw)
+        plain, *plain_stats = sp.fused_spike_accum_plain(occ, w, **kw)
         err = float((b1 - plain).abs().max())
         check(torch.allclose(b1, plain, atol=1e-4, rtol=1e-4),
               f"C3 B1 {tag}: max |err| {err} vs the plain version")
+        check(all(torch.equal(g, x) for g, x in zip(b1_stats, plain_stats)),
+              f"C3 B1 {tag}: statistics differ from the plain version")
 
         # B4 on a step's slice of real queues (B5 wrote them), fp32 and
         # bf16, then on queues that repeat positions
@@ -969,8 +998,7 @@ def phase_c3(device):
 
         row = dict(hw=hw, C_in=c_in, C_out=c_out, K=K, rows=n, depth=depth,
                    b1_ms=time_ms(k1),
-                   b1_device_ms=device_ms(k1,
-                                          KERNEL_NAMES["fused_spike_accum"]),
+                   b1_device_ms=device_ms(k1, B1_DEVICE_NAMES),
                    b4_ms=time_ms(k4),
                    b4_device_ms=device_ms(k4, KERNEL_NAMES["event_accum"]),
                    b1_plain_max_abs_err=err,
@@ -3970,9 +3998,10 @@ def save_fleet_registry(params, device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 chip_smoke.py")
-    ap.add_argument("--only", choices=("parallel", "lm"), default=None,
+    ap.add_argument("--only", choices=("parallel", "lm", "kernels"),
+                    default=None,
                     help="run the device and build phases, then the "
-                         "parallel or the lm phase alone")
+                         "parallel, the lm or the kernels phase alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -4001,8 +4030,8 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
-    audit = None if args.only == "parallel" else phase_audit()
-    lm = None if args.only == "parallel" else phase_lm(device)
+    audit = None if args.only else phase_audit()
+    lm = None if args.only else phase_lm(device)
 
     params = init_params(torch.Generator().manual_seed(SEED), SPEC, HW, C_IN,
                          device=device)
@@ -4033,6 +4062,20 @@ def main(argv=None) -> int:
                                            device)
     b3, b3_err = phase_b3(stages, device)
     c3 = phase_c3(device)
+    if args.only == "kernels":
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi_line, build=build, b1=b1,
+            b1_max_abs_err=b1_err, b2=b2, b2_max_abs_err=b2_err, b3=b3,
+            b3_max_abs_err=b3_err, c3=c3,
+            seconds=time.perf_counter() - t_all), indent=1))
+        log(f"[done] {time.perf_counter() - t_all:.1f} s")
+        print(smi_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     serve, launches, mask = phase_serve(params, device, kind)
     sparse = phase_sparse(params, th, cfg, imgs, device, kind)
     b5, b4, b4_err = phase_word_kernels(stages, device)

@@ -14,7 +14,9 @@ at its seed: the full-width CIFAR-10 net at bucket 64, T=4, depth 64.
 - B1 (``fused_spike_accum_cuda``) and B3 (``fused_spike_accum_sparse_cuda``,
   fp32 and ``weight_bits=8``): every analog stage's real occupancy at depth
   64 (64 * 4 rows); summed, one bucket-64 ``queue_pallas`` (B1) or
-  ``queue_sparse`` (B3) execution's work;
+  ``queue_sparse`` (B3) execution's work (B1 with its queue statistics,
+  ``steps`` = T, as ``queue_pallas`` runs it; its device time holds the
+  memset that zeroes them);
 - B2 (``quant_matmul_cuda``): the output head, M in {1, 4, 16, 64}, K=1152,
   N=10, and (256, 256, 256), beside ``torch._int_mm`` (A and B zero-padded
   to its smallest shape, then the same dequant);
@@ -108,7 +110,7 @@ def b1_b3_times(device):
                   H=cp.in_hw, W=cp.in_hw)
 
         def b1(occ=occ, w=w, kw=kw):
-            return sp.fused_spike_accum_cuda(occ, w, **kw)
+            return sp.fused_spike_accum_cuda(occ, w, steps=cs.T, **kw)
 
         def b3(occ=occ, w=w, kw=kw, wb=None):
             return ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=wb,
@@ -116,7 +118,7 @@ def b1_b3_times(device):
 
         rows.append(dict(
             stage=name, b1_ms=cs.time_ms(b1),
-            b1_device_ms=cs.device_ms(b1, ("fused_spike_accum",)),
+            b1_device_ms=cs.device_ms(b1, ("fused_spike_accum", "Memset")),
             b3_device_ms=cs.device_ms(b3, ("sparse_",)),
             b3_w8_device_ms=cs.device_ms(lambda: b3(wb=8), ("sparse_",))))
     return rows

@@ -400,8 +400,8 @@ def trace_kernels(cfg: engine.SNNConfig | None = None, device=None,
     with torch.inference_mode():
         return {
             "kernels.spike_pipeline.fused_spike_accum": record(
-                root, functools.partial(kops.fused_spike_accum, **geo),
-                occ, w),
+                root, functools.partial(kops.fused_spike_accum,
+                                        steps=cfg.T, **geo), occ, w),
             "kernels.spike_sparse.fused_spike_accum_sparse": record(
                 root, functools.partial(kops.fused_spike_accum, impl="sparse",
                                         e_cap=64, **geo), occ, w),

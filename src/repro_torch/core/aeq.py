@@ -174,11 +174,35 @@ def span_map(fmt: AEFormat, hw: int, device=None) -> torch.Tensor:
     ``span(y) * span(x)`` — the adds an event-driven engine issues per event
     (before the C_out fan-out). Padding positions (y or x >= hw) get 0.
     """
-    K, n = fmt.kernel, fmt.n_win
+    return window_spans(fmt.kernel, fmt.n_win, hw, hw, device)
+
+
+def window_spans(K: int, n_win: int, H: int, W: int,
+                 device=None) -> torch.Tensor:
+    """:func:`span_map` of an H x W map, from the geometry alone."""
+    n = n_win
     pos = torch.arange(n * n, dtype=torch.int32, device=device)
     wy, wx = pos // n, pos % n
     ph = torch.arange(K * K, dtype=torch.int32, device=device)[:, None]
     y = wy[None, :] * K + ph // K
     x = wx[None, :] * K + ph % K
-    return (kernel_span(y, K, hw) * kernel_span(x, K, hw) * (y < hw)
-            * (x < hw)).to(torch.int32)
+    return (kernel_span(y, K, H) * kernel_span(x, K, W) * (y < H)
+            * (x < W)).to(torch.int32)
+
+
+def queue_stats(occ: torch.Tensor, depth: int, spans: torch.Tensor,
+                C_out: int):
+    """The queue statistics of (B, ..., K2, P) occupancy: its
+    :func:`segment_keep` mask, its per-queue totals (B, ..., K2) uncapped
+    and capped at ``depth``, and per sample (B,) int32 the events kept, the
+    fired positions past ``depth``, and ``C_out`` x the ``spans`` (K2, P)
+    of the kept positions (the scalar adds, with :func:`span_map`'s
+    spans)."""
+    keep = segment_keep(occ, depth)
+    tot = (occ > 0).sum(-1)
+    capped = torch.clamp(tot, max=depth)
+    dims = tuple(range(1, tot.ndim))
+    ev = capped.sum(dims).to(torch.int32)
+    ovf = (tot - capped).sum(dims).to(torch.int32)
+    ops = ((keep * spans).sum((*dims, tot.ndim)) * C_out).to(torch.int32)
+    return keep, tot, capped, ev, ovf, ops

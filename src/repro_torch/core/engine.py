@@ -20,9 +20,9 @@ backends:
   (``snn_layers.event_conv2d``: the event-accumulate kernel);
 - ``queue_pallas`` (:class:`QueueBackend`, the serving default): each
   event-driven conv stage splits the incoming spike raster into per-phase
-  window occupancy, derives the integer stats from it, and runs the fused
-  compact+accumulate kernel (``kernels.ops.fused_spike_accum`` — the Hopper
-  kernel on a CUDA tensor);
+  window occupancy and runs the fused compact+accumulate kernel
+  (``kernels.ops.fused_spike_accum`` — the Hopper kernel on a CUDA
+  tensor), which returns the stage's integer stats with its charge;
 - ``queue_ref``: the same plan through the scatter oracles of
   ``kernels/ref.py``, honouring ``cfg.weight_bits`` — the parity anchor of
   ``queue_sparse``;
@@ -76,7 +76,7 @@ from ..audit.contracts import BackendContract, QuantContract
 from ..device import resolve_device
 from . import encoding
 from .aeq import (aeq_from_raster_batch, kernel_span, phase_occupancy,
-                  segment_keep, span_map)
+                  queue_stats, span_map)
 from .encoding import AEFormat, encode_ttfs
 from .neuron import (NeuronModel, _on_registry_change, get_neuron_model,
                      surrogate_model)
@@ -504,12 +504,15 @@ class QueueBackend:
             return _analog_layer(cp, cfg, analog, w, b, vth)
         if self.accum == "word":
             return _word_layer(cp, cfg, raster, w, b, vth)
+        if self.accum == "kernel":
+            # B1 returns the stage's statistics with its charge
+            occ = phase_occupancy(cp.fmt, raster)
+            cur, ev, ovf, ops = _event_charge(cp, cfg, occ, w, steps=cfg.T)
+            out = _charge_steps(cp, cfg, cur, b, vth)
+            return out, _event_stats(out, ev, ovf, ops)
         occ, _, _, ev, ovf, ops = _queue_stats(cp, cfg.depth, raster)
-        if self.accum == "ref":
-            out = _event_layer(cp, cfg, occ, w, b, vth, impl="ref",
-                               weight_bits=cfg.weight_bits)
-        else:
-            out = _event_layer(cp, cfg, occ, w, b, vth)
+        out = _event_layer(cp, cfg, occ, w, b, vth, impl="ref",
+                           weight_bits=cfg.weight_bits)
         return out, _event_stats(out, ev, ovf, ops)
 
 
@@ -522,14 +525,8 @@ def _queue_stats(cp: ConvPlan, depth: int, raster):
     totals (B, T, C, K2) uncapped and capped at ``depth``, and the per-sample
     stats (B,): events kept, events dropped, scalar adds."""
     occ = phase_occupancy(cp.fmt, raster)
-    keep = segment_keep(occ, depth)
-    tot = (occ > 0).sum(-1)
-    capped = torch.clamp(tot, max=depth)
-    ev = capped.sum((1, 2, 3)).to(torch.int32)
-    ovf = (tot - capped).sum((1, 2, 3)).to(torch.int32)
     spans = span_map(cp.fmt, cp.in_hw, raster.device)      # (K2, P)
-    ops = ((keep * spans).sum((1, 2, 3, 4)) * cp.out_c).to(torch.int32)
-    return occ, tot, capped, ev, ovf, ops
+    return occ, *queue_stats(occ, depth, spans, cp.out_c)[1:]
 
 
 def _event_stats(out, ev, ovf, ops):
@@ -553,21 +550,31 @@ def _run_steps(cp: ConvPlan, cfg: SNNConfig, vth, cur, model=None):
     return torch.stack(frames, dim=1)
 
 
-def _event_layer(cp: ConvPlan, cfg: SNNConfig, occ, w, b, vth, **accum):
-    """Accumulate the (B, T, C, K2, P) occupancy through
-    ``kernels.ops.fused_spike_accum`` (``accum`` picks the realization:
-    the fused kernel, the sparse one or the oracles) and run the time loop
-    on it plus the bias."""
+def _event_charge(cp: ConvPlan, cfg: SNNConfig, occ, w, **accum):
+    """The (B*T, H, W, C_out) charge of the (B, T, C, K2, P) occupancy
+    through ``kernels.ops.fused_spike_accum`` (``accum`` picks the
+    realization: the fused kernel, which returns the per-sample statistics
+    after it, the sparse one or the oracles)."""
     from ..kernels import ops as kops
 
     B = occ.shape[0]
     K2, P = occ.shape[-2:]
-    cur = kops.fused_spike_accum(
+    return kops.fused_spike_accum(
         occ.reshape(B * cfg.T, cp.in_c, K2, P), w,
         K=cp.kernel, n_win=cp.fmt.n_win, bits=cp.fmt.bits_coord,
         depth=cfg.depth, H=cp.in_hw, W=cp.in_hw, **accum)
-    cur = cur.reshape(B, cfg.T, cp.in_hw, cp.in_hw, cp.out_c) + b
+
+
+def _charge_steps(cp: ConvPlan, cfg: SNNConfig, cur, b, vth):
+    """The time loop on a stage's (B*T, H, W, C_out) charge plus the bias."""
+    cur = cur.reshape(-1, cfg.T, cp.in_hw, cp.in_hw, cp.out_c) + b
     return _run_steps(cp, cfg, vth, cur)
+
+
+def _event_layer(cp: ConvPlan, cfg: SNNConfig, occ, w, b, vth, **accum):
+    """:func:`_event_charge`, then the time loop on it plus the bias."""
+    return _charge_steps(cp, cfg, _event_charge(cp, cfg, occ, w, **accum),
+                         b, vth)
 
 
 def _word_layer(cp: ConvPlan, cfg: SNNConfig, raster, w, b, vth):

@@ -16,7 +16,9 @@
 //    bits: bits (N, C_in, K*K, NW) uint32, NW = ceil(P / 32), bit p % 32 of
 //    word p / 32 set <=> position p fired and has rank < depth. With the
 //    gate outputs it also writes each cell's kept-event total and marks
-//    the rows that hold any event (B3's occupancy gate).
+//    the rows that hold any event (B3's occupancy gate). B1's encode
+//    instead adds up each sample's queue statistics (encode<true>, or
+//    encode_packed where a queue fits in a word; then add_block_stats).
 // 2. gather (`gather`), output-stationary. The paper's phase interlacing
 //    gives, for each output pixel, input channel c and phase (ky, kx),
 //    exactly one position in the pixel's K x K window with y % K == ky and
@@ -386,11 +388,35 @@ __device__ __forceinline__ void cp_async_wait() {
 // (launched through launch_encode / launch_gather), so that B1's and B3's
 // kernels carry their own names in a profiler trace.
 
+// The per-sample queue statistics B1's encode pass adds up (encode<true>,
+// then add_block_stats): out (samples, 3) int32, zeroed before the launch;
+// a sample is cells_per_sample consecutive (n, c) cells (C_in * T). The
+// stage's geometry gives each position's in-bounds span.
+struct EncodeStats {
+  int32_t* out;
+  int cells_per_sample, K, n_win, H, W, C_out;
+};
+
+// In-bounds SAME-conv offsets d in [0, K) of an event at coordinate p on a
+// map of `size` (repro.core.aeq.kernel_span).
+__device__ __forceinline__ int kernel_span(int p, int K, int size) {
+  const int pad = K / 2;
+  return max(min(p + pad, K - 1) - max(p + pad - size + 1, 0) + 1, 0);
+}
+
 // Pass 1. One warp per (n, c) cell; cell_tot / row_act may be null (B1).
+// Stats (B1) also reads the positions past `depth`, and
+// leaves the cell's counts in counts[3] of every lane: events kept, fired
+// positions past `depth`, and the sum over kept positions of span(y) *
+// span(x), y = wy * K + ky, x = wx * K + kx (0 past the map) —
+// repro.core.aeq's segment_keep and span_map. A cell past n_cells leaves
+// them as they were.
+template <bool Stats = false>
 __device__ __forceinline__ void encode(
     const int32_t* __restrict__ occ, uint32_t* __restrict__ bits,
     int32_t* __restrict__ cell_tot, int32_t* __restrict__ row_act,
-    int n_cells, int C_in, int K2, int P, int depth) {
+    int n_cells, int C_in, int K2, int P, int depth, EncodeStats st = {},
+    unsigned* counts = nullptr) {
   const int lane = threadIdx.x & 31;
   const int cell = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (cell >= n_cells) return;  // warp-uniform
@@ -399,23 +425,191 @@ __device__ __forceinline__ void encode(
   const int32_t* src = occ + (size_t)cell * K2 * P;
   uint32_t* dst = bits + (size_t)cell * K2 * NW;
   int tot = 0;
-  for (int ph = 0; ph < K2; ++ph) {
-    int count = 0;  // warp-uniform: fired positions so far in this queue
-    for (int wi = 0; wi < NW; ++wi) {
-      const int p = wi * 32 + lane;
-      const bool fired = count < depth && p < P && src[ph * P + p] > 0;
-      const unsigned ballot = __ballot_sync(0xffffffffu, fired);
-      const bool kept = fired && count + __popc(ballot & below) < depth;
-      const unsigned kb = __ballot_sync(0xffffffffu, kept);
-      if (lane == 0) dst[ph * NW + wi] = kb;
-      count += __popc(ballot);
-      tot += __popc(kb);
+  if constexpr (Stats) {
+    // Every word is read, so the loads do not wait on the ranks: the warp
+    // walks the cell's K2 * NW words in chunks of U, each chunk's loads
+    // issued together, then ranked one word after another (a walk of
+    // dependent loads, one a word, is what bounds the encode otherwise).
+    // (wy, wx) of this lane's position and (ky, kx) of the phase advance
+    // with the walk, so the spans take no division. (U = 4 timed best of
+    // 1, 4 and 8 at a 32x32 map on an H100.)
+    constexpr int U = 4;
+    const int J = K2 * NW, dy = 32 / st.n_win, dx = 32 % st.n_win;
+    const int wy0 = lane / st.n_win, wx0 = lane % st.n_win;
+    int over = 0;        // fired positions past depth (warp-uniform)
+    unsigned span = 0u;  // this lane's kept positions' spans
+    int count = 0, wi = 0, ky = 0, kx = 0, wy = wy0, wx = wx0;
+    int lph = 0, lwi = 0;  // the next word to load
+    for (int j0 = 0; j0 < J; j0 += U) {
+      int v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = lwi * 32 + lane;
+        v[u] = j0 + u < J && p < P ? src[lph * P + p] : 0;
+        if (++lwi == NW) {
+          lwi = 0;
+          ++lph;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + u >= J) break;  // warp-uniform
+        const bool fired = v[u] > 0;
+        const unsigned ballot = __ballot_sync(0xffffffffu, fired);
+        const bool kept = fired && count + __popc(ballot & below) < depth;
+        const unsigned kb = __ballot_sync(0xffffffffu, kept);
+        if (lane == 0) dst[j0 + u] = kb;
+        count += __popc(ballot);
+        tot += __popc(kb);
+        if (kept) {
+          const int y = wy * st.K + ky, x = wx * st.K + kx;
+          if (y < st.H && x < st.W)
+            span += kernel_span(y, st.K, st.H) * kernel_span(x, st.K, st.W);
+        }
+        wy += dy;
+        wx += dx;
+        if (wx >= st.n_win) {
+          wx -= st.n_win;
+          ++wy;
+        }
+        if (++wi == NW) {  // the next phase
+          over += max(count - depth, 0);
+          count = 0;
+          wi = 0;
+          wy = wy0;
+          wx = wx0;
+          if (++kx == st.K) {
+            kx = 0;
+            ++ky;
+          }
+        }
+      }
+    }
+    counts[0] = (unsigned)tot;
+    counts[1] = (unsigned)over;
+    counts[2] = __reduce_add_sync(0xffffffffu, span);
+  } else {
+    for (int ph = 0; ph < K2; ++ph) {
+      int count = 0;  // warp-uniform: fired positions so far in this queue
+      for (int wi = 0; wi < NW; ++wi) {
+        const int p = wi * 32 + lane;
+        const bool fired = count < depth && p < P && src[ph * P + p] > 0;
+        const unsigned ballot = __ballot_sync(0xffffffffu, fired);
+        const bool kept = fired && count + __popc(ballot & below) < depth;
+        const unsigned kb = __ballot_sync(0xffffffffu, kept);
+        if (lane == 0) dst[ph * NW + wi] = kb;
+        count += __popc(ballot);
+        tot += __popc(kb);
+      }
     }
   }
   if (cell_tot != nullptr && lane == 0) {
     cell_tot[cell] = tot;
     if (tot > 0) row_act[cell / C_in] = 1;
   }
+}
+
+// B1's statistics encode where a queue fits in a word (P <= 32), in place
+// of encode<true>: the (n, c, phase) queues are P contiguous occupancy
+// entries each, so lane l of a word takes entry l % P of queue l / P, G =
+// 32 / P whole queues a word, and a queue's rank needs no carry. At P = 1
+// (the 3x3 maps) all 32 lanes rank, where encode has one lane of 32 at
+// work. Block b takes kWarps * WPW consecutive words of the queues of
+// sample b / blocks_per_sample, WPW a warp, their loads issued together.
+// Leaves the same counts as encode<true> in counts[3] of every lane, summed
+// over the warp's queues, and writes the same kept bits (one word a
+// queue).
+template <int WPW>
+__device__ __forceinline__ void encode_packed(
+    const int32_t* __restrict__ occ, uint32_t* __restrict__ bits, int K2,
+    int P, int depth, int blocks_per_sample, const EncodeStats& st,
+    unsigned* counts) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x / blocks_per_sample;
+  const int Q = st.cells_per_sample * K2;  // queues of a sample
+  const int G = 32 / P, g = lane / P, p = lane - g * P;
+  const unsigned mask = P == 32 ? 0xffffffffu : (1u << P) - 1u;
+  const unsigned below = (1u << p) - 1u;
+  const int wy = p / st.n_win, wx = p - wy * st.n_win;
+  const int w0 = ((blockIdx.x - s * blocks_per_sample) * kWarps
+                  + (threadIdx.x >> 5)) * WPW;  // the warp's first word
+  // the phase of this lane's queue, advanced by G % K2 a word
+  const int ph = (w0 * G + g) % K2, gk = G % K2;
+  const int gy = gk / st.K, gx = gk - gy * st.K;
+  int ky = ph / st.K, kx = ph - ky * st.K;
+  const size_t q0 = (size_t)s * Q;  // the sample's first queue
+  int v[WPW];
+#pragma unroll
+  for (int u = 0; u < WPW; ++u) {
+    const int q = (w0 + u) * G + g;
+    v[u] = g < G && q < Q ? occ[(q0 + q) * P + p] : 0;
+  }
+  unsigned tot = 0u, over = 0u, span = 0u;
+#pragma unroll
+  for (int u = 0; u < WPW; ++u) {
+    const int q = (w0 + u) * G + g;
+    const bool fired = v[u] > 0;
+    const unsigned seg =
+        (__ballot_sync(0xffffffffu, fired) >> (g * P)) & mask;
+    const bool kept = fired && __popc(seg & below) < depth;
+    const unsigned kb = __ballot_sync(0xffffffffu, kept);
+    if (p == 0 && g < G && q < Q) {  // the queue's first lane
+      bits[q0 + q] = (kb >> (g * P)) & mask;
+      over += (unsigned)max(__popc(seg) - depth, 0);
+    }
+    if (kept) {
+      ++tot;
+      const int y = wy * st.K + ky, x = wx * st.K + kx;
+      if (y < st.H && x < st.W)
+        span += kernel_span(y, st.K, st.H) * kernel_span(x, st.K, st.W);
+    }
+    kx += gx;
+    ky += gy;
+    if (kx >= st.K) {
+      kx -= st.K;
+      ++ky;
+    }
+    if (ky >= st.K) ky -= st.K;
+  }
+  counts[0] = __reduce_add_sync(0xffffffffu, tot);
+  counts[1] = __reduce_add_sync(0xffffffffu, over);
+  counts[2] = __reduce_add_sync(0xffffffffu, span);
+}
+
+// After encode<true> or encode_packed, every thread of the block: adds the
+// block's warps' counts (counts[3] and sample, warp-uniform) into their
+// samples' rows of st.out, the adds x C_out. The warps' counts are first
+// summed per sample in shared memory, so a block makes three atomics for
+// each sample its warps belong to (one, but where a block straddles two),
+// not three a warp: same-address atomics from every warp would queue at the
+// few cache lines of st.out. They are int32 adds, so they wrap as the
+// engine's int64 sums cast to int32 do, and give the same sums in any
+// order.
+__device__ __forceinline__ void add_block_stats(const EncodeStats& st,
+                                                const unsigned* counts,
+                                                int sample) {
+  __shared__ unsigned part[kWarps][3];
+  __shared__ int samples[kWarps];
+  if ((threadIdx.x & 31) == 0) {
+    for (int q = 0; q < 3; ++q) part[threadIdx.x >> 5][q] = counts[q];
+    samples[threadIdx.x >> 5] = sample;
+  }
+  __syncthreads();
+  if (threadIdx.x >= 3) return;
+  const int q = threadIdx.x;  // the count this thread adds
+  const unsigned scale = q == 2 ? (unsigned)st.C_out : 1u;
+  unsigned* out = reinterpret_cast<unsigned*>(st.out);
+  int s = samples[0];
+  unsigned acc = 0u;
+  for (int w = 0; w < kWarps; ++w) {
+    if (samples[w] != s) {
+      if (acc != 0u) atomicAdd(out + (size_t)s * 3 + q, acc * scale);
+      s = samples[w];
+      acc = 0u;
+    }
+    acc += part[w][q];
+  }
+  if (acc != 0u) atomicAdd(out + (size_t)s * 3 + q, acc * scale);
 }
 
 // Pass 2. Grid (ceil(n_tasks / Cells), ceil(C_out / 32)), gather_warps()

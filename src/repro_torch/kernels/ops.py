@@ -35,14 +35,18 @@ from .spike_sparse import (fused_spike_accum_sparse_cuda,
 
 
 def fused_spike_accum(occ, weights, *, K, n_win, bits, depth, H, W,
-                      impl=None, e_cap=None, n_rows=None, weight_bits=None):
+                      impl=None, e_cap=None, n_rows=None, weight_bits=None,
+                      steps=1):
     """(N, C_in, K2, P) occupancy -> (N, H, W, C_out) surviving-event charge.
 
-    ``impl``: None is the fused pipeline (B1); ``"sparse"`` the
-    occupancy-gated one (B3: ``n_rows`` sizes its ragged grid on the card,
-    ``e_cap`` its event list on the CPU); ``"ref"`` the scatter oracles.
-    ``weight_bits`` selects the int-quantized accumulate of ``"sparse"`` and
-    ``"ref"``; B1 has none.
+    ``impl``: None is the fused pipeline (B1), which returns ``(charge, ev,
+    ovf, ops)``: per sample, ``steps`` consecutive rows, int32 (N / steps,)
+    each, the events kept, the fired positions past ``depth`` and C_out x
+    the in-bounds spans of the kept events (``core.aeq.queue_stats``);
+    ``"sparse"`` the occupancy-gated one (B3: ``n_rows`` sizes its ragged
+    grid on the card, ``e_cap`` its event list on the CPU); ``"ref"`` the
+    scatter oracles. ``weight_bits`` selects the int-quantized accumulate of
+    ``"sparse"`` and ``"ref"``; B1 has none.
     """
     cuda = occ.device.type == "cuda"
     name = {None: "cuda" if cuda else "xla",
@@ -71,11 +75,9 @@ def fused_spike_accum(occ, weights, *, K, n_win, bits, depth, H, W,
     if weight_bits is not None:
         raise ValueError("the fused pipeline has no int-quantized accumulate "
                          "path (use impl='sparse' or 'ref')")
-    if cuda:
-        return fused_spike_accum_cuda(occ, weights, K=K, n_win=n_win,
-                                      depth=depth, H=H, W=W)
-    return fused_spike_accum_plain(occ, weights, K=K, n_win=n_win,
-                                   depth=depth, H=H, W=W)
+    fn = fused_spike_accum_cuda if cuda else fused_spike_accum_plain
+    return fn(occ, weights, K=K, n_win=n_win, depth=depth, H=H, W=W,
+              steps=steps)
 
 
 def quant_matmul(a_q, b_q, a_scale, b_scale):

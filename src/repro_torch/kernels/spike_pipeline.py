@@ -3,15 +3,21 @@
 Port of ``repro.kernels.spike_pipeline``. Both functions compute, for
 occupancy ``occ`` (N, C_in, K², P) int32 and HWIO weights (K, K, C_in,
 C_out), the (N, H, W, C_out) fp32 charge of the events that survive a
-depth-``depth`` queue per (row, channel, phase):
+depth-``depth`` queue per (row, channel, phase), and each sample's queue
+statistics (events kept, events dropped, scalar adds; a sample is
+``steps`` consecutive rows), which the engine's ``queue_pallas`` stage
+reports:
 
 - :func:`fused_spike_accum_cuda` — the CUDA kernel ``csrc/spike_pipeline.cu``
   (replaces the Pallas TPU kernel ``fused_spike_accum_pallas``): packed
-  kept bits, then a gather that adds into each output in (c, phase) order
+  kept bits, whose encode pass also adds up the statistics as it ranks the
+  queues, then a gather that adds into each output in (c, phase) order
   (``csrc/spike_accum.cuh``, shared with B3 and B4; unrolled for K in
   :data:`UNROLLED_K`, rolled for any other odd K);
 - :func:`fused_spike_accum_plain` — the ``fused_spike_accum_xla`` semantics:
-  drop mask, rebuild the surviving 0/1 map in HWC order, one SAME conv.
+  drop mask, rebuild the surviving 0/1 map in HWC order, one SAME conv; the
+  statistics as the engine's other backends compute them
+  (``core.aeq.queue_stats``).
 
 ``kernels.ops.fused_spike_accum`` picks between them by the tensor's device.
 """
@@ -22,25 +28,35 @@ import ctypes
 import torch
 
 from ..audit.contracts import SMEM_BUDGET_BYTES, KernelContract, block_bytes
+from ..core.aeq import queue_stats, window_spans
 from ..core.snn_layers import conv_same_nhwc
 from . import _cuda
 
 
-def fused_spike_accum_plain(occ, weights, *, K, n_win, depth, H, W):
-    """Drop-mask the occupancy, rebuild the spike map, one batched SAME conv."""
+def _samples(N, steps):
+    """Samples of ``steps`` rows each in N rows."""
+    if steps < 1 or N % steps:
+        raise ValueError(f"{N} rows are not samples of {steps} steps")
+    return N // steps
+
+
+def fused_spike_accum_plain(occ, weights, *, K, n_win, depth, H, W,
+                            steps=1):
+    """Drop-mask the occupancy, rebuild the spike map, one batched SAME
+    conv: (charge, ev, ovf, ops), the statistics int32 (N / steps,)."""
     N, C_in, K2, P = occ.shape
-    fired = occ > 0
-    if depth < P:
-        slot = torch.cumsum(fired.to(torch.int32), dim=-1) - 1
-        fired = fired & (slot < depth)
+    spans = window_spans(K, n_win, H, W, occ.device)        # (K2, P)
+    keep, _, _, ev, ovf, ops = queue_stats(
+        occ.reshape(_samples(N, steps), steps, C_in, K2, P), depth, spans,
+        weights.shape[-1])
     # inverse phase split: (N, C, ky, kx, wy, wx) -> (N, y, x, C)
-    m = fired.reshape(N, C_in, K, K, n_win, n_win).to(weights.dtype)
+    m = keep.reshape(N, C_in, K, K, n_win, n_win).to(weights.dtype)
     m = m.permute(0, 4, 2, 5, 3, 1).reshape(N, n_win * K, n_win * K, C_in)
-    return conv_same_nhwc(m[:, :H, :W, :], weights)
+    return conv_same_nhwc(m[:, :H, :W, :], weights), ev, ovf, ops
 
 
 _SMEM_MAX = SMEM_BUDGET_BYTES    # shared memory one Hopper block may use
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
              + (ctypes.c_void_p,))
 UNROLLED_K = (1, 3, 5, 7)   # K with an unrolled gather; others run rolled
 GATHER_CELLS = 8            # window cells a gather block covers (kWarps)
@@ -111,8 +127,11 @@ def check_gather_fits(K, n_win, H, W):
                          f"kernel has {_SMEM_MAX}")
 
 
-def fused_spike_accum_cuda(occ, weights, *, K, n_win, depth, H, W):
-    """Launch ``csrc/spike_pipeline.cu`` on the current stream."""
+def fused_spike_accum_cuda(occ, weights, *, K, n_win, depth, H, W,
+                           steps=1):
+    """Launch ``csrc/spike_pipeline.cu`` on the current stream: (charge,
+    ev, ovf, ops), equal to :func:`fused_spike_accum_plain`'s statistics
+    bit for bit."""
     if occ.device.type != "cuda" or weights.device != occ.device:
         raise ValueError("fused_spike_accum_cuda needs occ and weights on "
                          "the same CUDA device")
@@ -130,17 +149,19 @@ def fused_spike_accum_cuda(occ, weights, *, K, n_win, depth, H, W):
     C_out = weights.shape[-1]
     out = torch.empty((N, H, W, C_out), dtype=torch.float32,
                       device=occ.device)
+    stats = torch.empty((_samples(N, steps), 3), dtype=torch.int32,
+                        device=occ.device)            # zeroed by the launch
     if N == 0:
-        return out
+        return out, *stats.unbind(1)
     scratch = torch.empty(kept_bit_words(occ.shape), dtype=torch.int32,
                           device=occ.device)
     fn = _cuda.kernel_fn("spike_pipeline", "fused_spike_accum", _ARGTYPES)
     _cuda.launch_counts["fused_spike_accum"] += 1
     err = fn(occ.data_ptr(), weights.data_ptr(), scratch.data_ptr(),
-             out.data_ptr(), N, C_in, K, n_win, depth, H, W, C_out,
-             _cuda.stream_ptr(occ.device))
+             out.data_ptr(), stats.data_ptr(), N, C_in, K, n_win, depth, H,
+             W, C_out, steps, _cuda.stream_ptr(occ.device))
     _cuda.check_launch(err, "fused_spike_accum")
-    return out
+    return out, *stats.unbind(1)
 
 
 def launch_smem(*, K, n_win, H, W, **_unused) -> int:

@@ -82,11 +82,77 @@ def test_fused_spike_accum_kernel_matches_plain(cuda, hw, c_in, c_out, depth):
         .astype(np.float32)).to(cuda)
     kw = dict(K=3, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
     ops.reset_launch_counts()
-    got = ops.fused_spike_accum(occ, w, bits=fmt.bits_coord, **kw)
+    got = ops.fused_spike_accum(occ, w, bits=fmt.bits_coord, **kw)[0]
     assert ops.launch_counts["fused_spike_accum"] == 1
     torch.cuda.synchronize()
-    assert torch.equal(got, sp.fused_spike_accum_plain(occ, w, **kw))
+    assert torch.equal(got, sp.fused_spike_accum_plain(occ, w, **kw)[0])
     assert torch.equal(got, ref.fused_spike_accum_ref(occ, w, **kw))
+
+
+# (hw, c_in, c_out, depth, samples, steps, density): B1_SHAPES as 2 samples
+# of 3 steps, then the served stages (CIFAR-10's six, SVHN's C_in = 1 one)
+# at a bucket of 64 x 4 steps, sparse and dense enough to drop at 32x32
+B1_STATS_SHAPES = (
+    [(hw, c_in, c_out, depth, 2, 3, 0.25)
+     for hw, c_in, c_out, depth in B1_SHAPES]
+    + [(hw, c_in, c_out, 64, 64, 4, density)
+       for hw, c_in, c_out in ((32, 32, 32), (32, 1, 32), (10, 32, 64),
+                               (10, 64, 64), (3, 64, 128), (3, 128, 128))
+       for density in (0.25, 0.7)])
+
+
+def _stats_inputs(cuda, hw, c_in, c_out, rows, density, seed):
+    rng = np.random.default_rng(seed)
+    raster = torch.from_numpy(
+        (rng.random((rows, hw, hw, c_in)) < density).astype(np.float32))
+    fmt = make_format(hw, 3)
+    w = torch.from_numpy((rng.integers(-128, 128, (3, 3, c_in, c_out))
+                          / 256.0).astype(np.float32))
+    return fmt, phase_occupancy(fmt, raster.to(cuda)), w.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c_in,c_out,depth,B,T,density", B1_STATS_SHAPES)
+def test_fused_spike_accum_stats_kernel_matches_plain(cuda, hw, c_in, c_out,
+                                                      depth, B, T, density):
+    """B1's statistics, ``steps`` rows a sample: (ev, ovf, ops) equal the
+    plain version bit for bit, so does the charge (dyadic weights), and the
+    call is one launch."""
+    fmt, occ, w = _stats_inputs(cuda, hw, c_in, c_out, B * T, density,
+                                hw * depth + c_in + B)
+    kw = dict(K=3, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+    ops.reset_launch_counts()
+    got = ops.fused_spike_accum(occ, w, bits=fmt.bits_coord, steps=T, **kw)
+    assert ops.launch_counts["fused_spike_accum"] == 1
+    torch.cuda.synchronize()
+    want = sp.fused_spike_accum_plain(occ.cpu(), w.cpu(), steps=T, **kw)
+    assert torch.equal(got[0].cpu(), want[0])
+    for g, x in zip(got[1:], want[1:]):
+        assert g.dtype == torch.int32 and g.shape == (B,)
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+def test_fused_spike_accum_stats_replayed_graph_zeroes_them(cuda):
+    """Captured in a CUDA graph, the call zeroes its statistics inside the
+    graph: every replay gives the eager call's numbers, not their sum."""
+    fmt, occ, w = _stats_inputs(cuda, 32, 32, 32, 64 * 4, 0.7, 5)
+    kw = dict(K=3, n_win=fmt.n_win, depth=64, H=32, W=32,
+              bits=fmt.bits_coord, steps=4)
+    eager = ops.fused_spike_accum(occ, w, **kw)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        ops.fused_spike_accum(occ, w, **kw)           # warm-up off-graph
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.fused_spike_accum(occ, w, **kw)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, x in zip(captured, eager):
+            assert torch.equal(g, x)
 
 
 @pytest.mark.cuda
@@ -173,7 +239,7 @@ def test_sparse_kernel_matches_plain(cuda, hw, c_in, c_out, depth):
     got = ss.fused_spike_accum_sparse_cuda(occ, w_g, **kw)
     want = ss.fused_spike_accum_sparse_plain(occ, w_g, e_cap=e_cap, **kw)
     assert torch.allclose(got, want, atol=1e-4, rtol=1e-4)
-    assert torch.equal(got, sp.fused_spike_accum_cuda(occ, w_g, **kw))
+    assert torch.equal(got, sp.fused_spike_accum_cuda(occ, w_g, **kw)[0])
 
 
 GATHER_SHAPES = (  # (hw, c_in, c_out, depth, K): B1_SHAPES, other K, 64x64
@@ -200,16 +266,19 @@ def test_gather_kernels_match_ordered_oracle(cuda, hw, c_in, c_out, depth,
     """B1 and B3 on Gaussian weights equal the (c, phase)-ordered oracle bit
     for bit (the order of adds the mask contract and B3 == B1 rest on), and
     B3's int path equals the quantized oracle, at K in {1, 3, 5, 7}, depth
-    < P and a 64x64 map (whose charge map no block could hold)."""
+    < P and a 64x64 map (whose charge map no block could hold); B1's
+    statistics equal its plain version's."""
     n = 2 if hw == 64 else 3
     fmt, occ, w = _gather_inputs(cuda, hw, c_in, c_out, K, n, hw + depth + K)
     kw = dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
     want = ref.fused_spike_accum_ordered_ref(occ, w, **kw)
-    b1 = sp.fused_spike_accum_cuda(occ, w, **kw)
+    b1, *stats = sp.fused_spike_accum_cuda(occ, w, **kw)
     b3 = ss.fused_spike_accum_sparse_cuda(occ, w, **kw)
     q = ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=8, **kw)
     torch.cuda.synchronize()
     assert torch.equal(b1, want) and torch.equal(b3, want)
+    for g, x in zip(stats, sp.fused_spike_accum_plain(occ, w, **kw)[1:]):
+        assert torch.equal(g, x)
     assert torch.equal(q, ref.fused_spike_accum_quant_ref(
         occ, w, weight_bits=8, **kw))
 
@@ -723,15 +792,18 @@ def test_c3_gather_kernels_match_ordered_oracle(cuda, hw, c_in, c_out, K,
                                                 rows, depth):
     """B1 and B3 equal the (c, phase)-ordered oracle bit for bit, and B3's
     int path the quantized oracle, at maps past the old staged-bits limit
-    and at K without an unrolled gather."""
+    and at K without an unrolled gather; B1's statistics equal its plain
+    version's."""
     fmt, occ, w = _gather_inputs(cuda, hw, c_in, c_out, K, rows, hw + K)
     kw = dict(K=K, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
     want = ref.fused_spike_accum_ordered_ref(occ, w, **kw)
-    b1 = sp.fused_spike_accum_cuda(occ, w, **kw)
+    b1, *stats = sp.fused_spike_accum_cuda(occ, w, **kw)
     b3 = ss.fused_spike_accum_sparse_cuda(occ, w, **kw)
     q = ss.fused_spike_accum_sparse_cuda(occ, w, weight_bits=8, **kw)
     torch.cuda.synchronize()
     assert torch.equal(b1, want) and torch.equal(b3, want)
+    for g, x in zip(stats, sp.fused_spike_accum_plain(occ, w, **kw)[1:]):
+        assert torch.equal(g, x)
     assert torch.equal(q, ref.fused_spike_accum_quant_ref(
         occ, w, weight_bits=8, **kw))
 

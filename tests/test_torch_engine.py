@@ -94,7 +94,7 @@ def test_gaussian_weights_charges_within_tolerance():
         want = jops.fused_spike_accum(occ_j.reshape(12, cp.in_c, 9, -1),
                                       jnp.asarray(w), impl="xla", **kw)
         got = tops.fused_spike_accum(occ_t.reshape(12, cp.in_c, 9, -1),
-                                     torch.from_numpy(w), **kw)
+                                     torch.from_numpy(w), **kw)[0]
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                    rtol=1e-4)
 

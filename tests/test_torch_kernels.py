@@ -56,7 +56,7 @@ def test_fused_spike_accum_plain_matches_reference(hw, c_in, c_out, depth,
     fmt, occ, w = _occ_weights(hw, c_in, c_out, depth, dyadic)
     kw = _b1_kw(fmt, hw, depth)
     got = tops.fused_spike_accum(torch.from_numpy(occ), torch.from_numpy(w),
-                                 bits=fmt.bits_coord, **kw).numpy()
+                                 bits=fmt.bits_coord, **kw)[0].numpy()
     want = {
         "xla": np.asarray(jops.fused_spike_accum(
             jnp.asarray(occ), jnp.asarray(w), impl="xla",
@@ -123,11 +123,148 @@ def test_fused_spike_accum_drops_follow_segment_keep():
     fmt, occ, w = _occ_weights(12, 2, 4, 1, dyadic=True)
     kw = _b1_kw(fmt, 12, 1)
     t_occ, t_w = torch.from_numpy(occ), torch.from_numpy(w)
-    dropped = tsp.fused_spike_accum_plain(t_occ, t_w, **kw)
-    full = tsp.fused_spike_accum_plain(t_occ, t_w, **{**kw, "depth": 64})
+    dropped = tsp.fused_spike_accum_plain(t_occ, t_w, **kw)[0]
+    full = tsp.fused_spike_accum_plain(t_occ, t_w, **{**kw, "depth": 64})[0]
     first_only = tref.fused_spike_accum_ref(t_occ, t_w, **kw)
     assert torch.equal(dropped, first_only)
     assert not torch.equal(dropped, full)
+
+
+STATS_CASES = {  # name: (hw, c_in, c_out, T, depth, spike density, samples)
+    # CIFAR-10's 32x32 stage: depth 64 < P = 121, so dense queues drop
+    "cifar10_32x32": (32, 32, 32, 4, 64, 0.6, 2),
+    # SVHN's C_in = 1 stage: every queue past its depth
+    "svhn_c_in_1": (32, 1, 32, 4, 64, 0.85, 2),
+    # a pooled 10x10 stage: depth >= P = 16, nothing can drop
+    "pooled_10x10": (10, 32, 64, 4, 64, 0.5, 2),
+    "depth_1": (12, 3, 16, 4, 1, 0.3, 3),
+    # sample 0 all empty, 1 all fired, 2 empty and fired steps in turn
+    "empty_and_fired_rows": (9, 2, 8, 4, 16, None, 4),
+    "t3_uncompressed_hw10": (10, 2, 8, 3, 5, 0.4, 3),
+    "t1": (9, 2, 8, 1, 4, 0.4, 3),
+}
+
+
+def _stats_raster(hw, c_in, T, density, B, seed):
+    rng = np.random.default_rng(seed)
+    if density is None:
+        r = (rng.random((B, T, hw, hw, c_in)) < 0.4).astype(np.float32)
+        r[0], r[1] = 0.0, 1.0
+        r[2, 0::2], r[2, 1::2] = 0.0, 1.0
+    else:
+        r = (rng.random((B, T, hw, hw, c_in)) < density).astype(np.float32)
+    return torch.from_numpy(r)
+
+
+def _reference_queue_stats(fmt, hw, depth, c_out, raster):
+    """The JAX reference engine's queue statistics of a (B, T, H, W, C)
+    raster (``repro.core.engine``'s ``queue_pallas`` stage)."""
+    occ = jaeq.phase_occupancy(fmt, jnp.asarray(raster.numpy()))
+    keep = jaeq.segment_keep(occ, depth)
+    tot = (occ > 0).sum(-1)
+    capped = jnp.minimum(tot, depth)
+    ev = capped.sum((1, 2, 3)).astype(jnp.int32)
+    ovf = (tot - capped).sum((1, 2, 3)).astype(jnp.int32)
+    ops = ((keep * jaeq.span_map(fmt, hw)[None, None, None]).sum(
+        (1, 2, 3, 4)) * c_out).astype(jnp.int32)
+    return [torch.from_numpy(np.array(x)) for x in (ev, ovf, ops)]
+
+
+@pytest.mark.parametrize("case", list(STATS_CASES))
+def test_fused_stats_plain_equal_queue_stats(case):
+    """B1's statistics on the CPU (``steps`` = T rows a sample): (ev, ovf,
+    ops) equal the JAX reference's and the engine's ``_queue_stats`` bit
+    for bit, the charge is the plain B1's, and changing one sample's rows
+    leaves every other sample's statistics as they were."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import aeq as taeq
+    from repro_torch.core import encoding as tenc
+    from repro_torch.core import engine
+
+    hw, c_in, c_out, T, depth, density, B = STATS_CASES[case]
+    fmt = tenc.make_format(hw, 3)
+    jfmt = jenc.make_format(hw, 3)
+    cp = SimpleNamespace(fmt=fmt, in_hw=hw, out_c=c_out)
+    w = torch.from_numpy(np.random.default_rng(hw).integers(
+        -128, 128, (3, 3, c_in, c_out)).astype(np.float32) / 256.0)
+    kw = dict(K=3, n_win=fmt.n_win, depth=depth, H=hw, W=hw)
+
+    def stats(raster):
+        occ = taeq.phase_occupancy(fmt, raster)
+        flat = occ.reshape(B * T, *occ.shape[2:])
+        got = tops.fused_spike_accum(flat, w, bits=fmt.bits_coord, steps=T,
+                                     **kw)
+        assert torch.equal(got[0],
+                           tsp.fused_spike_accum_plain(flat, w, **kw)[0])
+        _, _, _, ev, ovf, ops = engine._queue_stats(cp, depth, raster)
+        reference = _reference_queue_stats(jfmt, hw, depth, c_out, raster)
+        for g, want, ref in zip(got[1:], (ev, ovf, ops), reference):
+            assert g.dtype == torch.int32 and g.shape == (B,)
+            assert torch.equal(g, want) and torch.equal(g, ref)
+        return torch.stack(got[1:], 1)
+
+    raster = _stats_raster(hw, c_in, T, density, B, seed=len(case))
+    before = stats(raster)
+    if case == "svhn_c_in_1":
+        assert bool((before[:, 1] > 0).all())     # every sample drops
+    if case == "pooled_10x10":
+        assert bool((before[:, 1] == 0).all())
+    changed = raster.clone()
+    changed[0] = _stats_raster(hw, c_in, T, 0.5, 1, seed=99)[0]
+    after = stats(changed)
+    assert not torch.equal(after[0], before[0])
+    assert torch.equal(after[1:], before[1:])
+
+
+def test_fused_stats_counts_its_dispatch_and_is_b1s_alone():
+    """A B1 dispatch counts ``kernels.dispatch.fused:xla`` alone on the CPU
+    and returns the statistics; the sparse realization and the oracles
+    return the charge alone, and the steps must divide the rows."""
+    from repro_torch import obs
+
+    fmt, occ, w = _occ_weights(9, 2, 8, 4, dyadic=True, T=4)
+    t_occ, t_w = torch.from_numpy(occ), torch.from_numpy(w)
+    kw = dict(bits=fmt.bits_coord, **_b1_kw(fmt, 9, 4))
+    obs.enable()
+    try:
+        got = tops.fused_spike_accum(t_occ, t_w, steps=2, **kw)
+        counters = obs.metrics_snapshot()["counters"]
+    finally:
+        obs.disable()
+        obs.reset()
+    assert counters == {"kernels.dispatch.fused:xla": 1}
+    assert len(got) == 4 and all(g.shape == (t_occ.shape[0] // 2,)
+                                 for g in got[1:])
+    for extra in ({"impl": "sparse", "e_cap": 64}, {"impl": "ref"}):
+        assert isinstance(tops.fused_spike_accum(t_occ, t_w, **extra, **kw),
+                          torch.Tensor)
+    with pytest.raises(ValueError, match="samples of 3 steps"):
+        tops.fused_spike_accum(t_occ, t_w, steps=3, **kw)
+
+
+def test_queue_pallas_takes_its_stats_from_b1():
+    """The ``queue_pallas`` backend no longer runs ``_queue_stats``: with
+    that chain made to fail, its stats still equal ``queue_ref``'s, which
+    keeps it."""
+    from unittest import mock
+
+    from _torch_nets import dyadic_net
+    from repro_torch.core import engine
+
+    params, th = dyadic_net("6C3-P2-4C3-8", 10, 1)
+    cfg = engine.SNNConfig(spec="6C3-P2-4C3-8", input_hw=10, input_c=1, T=3,
+                           depth=2)
+    imgs = np.random.default_rng(3).random((3, 10, 10, 1)).astype(np.float32)
+    _, want = engine.infer_batch(params, th, cfg, imgs, backend="queue_ref",
+                                 device="cpu")
+    with mock.patch.object(engine, "_queue_stats",
+                           side_effect=AssertionError("on the path")):
+        _, got = engine.infer_batch(params, th, cfg, imgs,
+                                    backend="queue_pallas", device="cpu")
+    for g, x in zip(got, want):
+        assert torch.equal(torch.as_tensor(g), torch.as_tensor(x))
+    assert int(np.asarray(want.overflow).sum()) > 0
 
 
 @pytest.mark.parametrize("m,k,n", B2_SHAPES)
@@ -225,7 +362,7 @@ def test_c3_plain_versions_match_reference(hw, c_in, c_out, depth, K,
         tss.max_kept_events(occ.shape, depth))
     got = {
         "b1 plain": tops.fused_spike_accum(occ_t, w_t, bits=fmt.bits_coord,
-                                           **kw),
+                                           **kw)[0],
         "b3 plain": tops.fused_spike_accum(occ_t, w_t, bits=fmt.bits_coord,
                                            impl="sparse", e_cap=e_cap, **kw),
         "ordered": tref.fused_spike_accum_ordered_ref(occ_t, w_t, **kw),
