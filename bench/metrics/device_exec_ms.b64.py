@@ -7,16 +7,15 @@ window, over the window's bucket-64 executions, averaged over the cards.
 None where none ran, or where the program's summary has no ``device_s``
 (or, on the CPU, an empty one)."""
 
-BUCKET = 64
+from bench.harness import phases
 
 
 def read(ctx):
     s0, s1 = ctx.summary
-    n = (s1["bucket_histogram"].get(BUCKET, 0)
-         - s0["bucket_histogram"].get(BUCKET, 0))
-    cards = s1.get("device_s", {}).get(BUCKET, {})
+    n = phases.executions(ctx)
+    cards = s1.get("device_s", {}).get(phases.BUCKET, {})
     if n <= 0 or not cards:
         return None
-    was = s0["device_s"].get(BUCKET, {})
+    was = s0["device_s"].get(phases.BUCKET, {})
     per_card = [(s - was.get(c, 0.0)) / n for c, s in cards.items()]
     return sum(per_card) / len(per_card) * 1e3

@@ -9,7 +9,8 @@
   harness, with the served path broken underneath, must come out not
   correct: a plan that returns its previous outputs (state unchanged),
   half of each bucket left out, the shards' outputs not exchanged (a
-  four-way mesh), an answer altered where it is produced.
+  four-way mesh), an answer altered where it is produced; the faults a
+  single card can have again under an open loop's mixed buckets.
 """
 import numpy as np
 import pytest
@@ -61,30 +62,36 @@ def test_the_tf32_control_is_not_correct(config):
 
 # -- faults ---------------------------------------------------------------------
 
+# Each replay fault stands in for ``replay(images, split)``, the call both
+# plans share, and hands the step's split on, so the served step's phases
+# are cut as they are on the sound path.
+
 def stale_outputs(monkeypatch):
     """A plan that returns the outputs of its first call every time."""
+    from repro_torch import obs
     from repro_torch.serve import registry
 
     real, first = registry.EagerPlan.replay, {}
 
-    def replay(self, images):
-        out = real(self, images)
+    def replay(self, images, split=obs.NO_SPLIT):
+        out = real(self, images, split)
         return first.setdefault(images.shape[0], out)
     monkeypatch.setattr(registry.EagerPlan, "replay", replay)
 
 
 def half_batch(monkeypatch):
     """Only the first half of each bucket is computed; the rest is zeros."""
+    from repro_torch import obs
     from repro_torch.core import engine
     from repro_torch.serve import registry
 
     real = registry.EagerPlan.replay
 
-    def replay(self, images):
+    def replay(self, images, split=obs.NO_SPLIT):
         b = images.shape[0]
         if b < 2:
-            return real(self, images)
-        logits, st = real(self, images[: b // 2])
+            return real(self, images, split)
+        logits, st = real(self, images[: b // 2], split)
         grow = lambda a: torch.cat([a, torch.zeros((b - len(a),) + a.shape[1:],
                                                    dtype=a.dtype)])
         return grow(logits), engine.SNNStats(*(grow(a) for a in st))
@@ -105,26 +112,30 @@ def no_exchange(monkeypatch):
 
 def altered_answer(monkeypatch):
     """The first row of every bucket's logits is moved by 1e-3."""
+    from repro_torch import obs
     from repro_torch.serve import registry
 
     real = registry.EagerPlan.replay
 
-    def replay(self, images):
-        logits, st = real(self, images)
+    def replay(self, images, split=obs.NO_SPLIT):
+        logits, st = real(self, images, split)
         logits = logits.clone()
         logits[0] += 1e-3
         return logits, st
     monkeypatch.setattr(registry.EagerPlan, "replay", replay)
 
 
-@pytest.mark.parametrize("fault,chips", [
-    (stale_outputs, 1), (half_batch, 1), (no_exchange, 4),
-    (altered_answer, 1)], ids=["state_unchanged", "half_batch",
-                               "no_exchange", "altered_answer"])
+@pytest.mark.parametrize("fault,chips,cell_name", [
+    (stale_outputs, 1, "tiny.closed"), (half_batch, 1, "tiny.closed"),
+    (no_exchange, 4, "tiny.closed"), (altered_answer, 1, "tiny.closed"),
+    (stale_outputs, 1, "tiny.open"), (half_batch, 1, "tiny.open"),
+    (altered_answer, 1, "tiny.open")],
+    ids=["state_unchanged", "half_batch", "no_exchange", "altered_answer",
+         "state_unchanged.open", "half_batch.open", "altered_answer.open"])
 def test_a_broken_served_path_is_not_correct(tmp_path, monkeypatch, fault,
-                                             chips):
+                                             chips, cell_name):
     root = tiny_checkout(tmp_path, chips=chips)
-    assert run_tiny(root)["correct"]
+    assert run_tiny(root, cell_name=cell_name)["correct"]
     fault(monkeypatch)
-    r = run_tiny(root)
+    r = run_tiny(root, cell_name=cell_name)
     assert not r["correct"], r["checks"]

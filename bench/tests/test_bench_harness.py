@@ -12,7 +12,7 @@ import pytest
 from bench.harness import manifest, roofline, serve, traffic
 from bench.reference import snn
 
-from _tiny import ROOT, run_tiny, tiny_checkout
+from _tiny import ROOT, list_for, run_tiny, tiny_checkout
 
 CIFAR = "32C3-32C3-P3-64C3-64C3-P3-128C3-128C3-128C3-10"
 
@@ -310,10 +310,8 @@ def test_a_new_mix_kind_is_new_files_only(tmp_path):
     man["workloads"].append({"name": "tiny.burst", "config": "tiny",
                              "traffic": "tiny_burst", "chips": 1,
                              "why": "test"})
-    man["end_to_end"].append({"name": "latency_p99_ms", "unit": "ms",
-                              "better": "lower", "bound": 0.25,
-                              "source": "host_clock",
-                              "workloads": ["tiny.burst"]})
+    list_for(man, "end_to_end", "tiny.burst", name="latency_p99_ms",
+             unit="ms", better="lower", bound=0.25, source="host_clock")
     (root / "BENCHMARK.json").write_text(json.dumps(man))
     from bench.harness import cell
 
@@ -324,6 +322,60 @@ def test_a_new_mix_kind_is_new_files_only(tmp_path):
     assert r["attempted"] == 6 * 6
     for rel, data in before.items():
         assert (root / rel).read_bytes() == data, rel
+
+
+def test_an_open_cell_reports_its_tail_and_its_readers(tmp_path,
+                                                       monkeypatch):
+    """A tiny open cell, added as files only, runs to its result line: its
+    end-to-end metrics are the tail and the set-up, its traced run reads
+    the three readers of the open loop."""
+    root = tiny_checkout(tmp_path)
+    r = run_tiny(root, cell_name="tiny.open")
+    assert r["correct"], r["checks"]
+    assert set(r["metrics"]) == {"latency_p99_ms", "setup_s"}
+    assert r["metrics"]["latency_p99_ms"]["value"] > 0
+    assert r["attempted"] > 0 and r["failed"] == 0
+    # the CPU has no device for the profiler to see busy; the device
+    # reader is handed a busy half of the traced stretch
+    from bench.harness import profile
+
+    real = profile.reduce
+
+    def reduce(*a, **k):
+        out = real(*a, **k)
+        out["busy_s"] = out["window_s"] / 2
+        return out
+    monkeypatch.setattr(profile, "reduce", reduce)
+    r = run_tiny(root, trace=True, cell_name="tiny.open")
+    assert r["correct"], r["checks"]
+    got = {k: v["value"] for k, v in r["metrics"].items()}
+    assert set(got) == {"bucket_occupancy.open", "execute_ms.open",
+                        "device_idle_share.open"}
+    assert 0 < got["bucket_occupancy.open"] <= 100
+    assert got["execute_ms.open"] > 0
+    assert got["device_idle_share.open"] == pytest.approx(50.0)
+
+
+def test_open_and_closed_cells_report_their_own_metrics(tmp_path):
+    """The rate belongs to the closed cells and the tail to an open one;
+    the readers of bucket-64 steps are listed on the closed cells and stay
+    off an open cell, whose window may run no bucket of 64."""
+    closed = ("cifar10-closed", "svhn-closed", "cifar10-dp4-closed")
+    phase = {"pull_ms.b64", "price_ms.b64", "respond_ms.b64",
+             "copy_in_ms.b64", "launch_ms.b64", "sync_wait_ms.b64",
+             "device_exec_ms.b64", "device_idle_share.window"}
+    e2e = lambda man, c: {m["name"] for m in manifest.end_to_end(man, c)}
+    layer = lambda man, c: {m["name"] for m in manifest.per_layer(man, c)}
+    tiny = json.loads((tiny_checkout(tmp_path) / "BENCHMARK.json")
+                      .read_text())
+    for man in (MAN, tiny):
+        for c in closed:
+            assert e2e(man, c) == {"throughput_rps", "setup_s"}, c
+            assert phase <= layer(man, c), c
+    assert e2e(tiny, "tiny.open") == {"latency_p99_ms", "setup_s"}
+    assert layer(tiny, "tiny.open") == {"bucket_occupancy.open",
+                                        "execute_ms.open",
+                                        "device_idle_share.open"}
 
 
 def test_an_unknown_kind_without_its_code_is_refused(tmp_path):

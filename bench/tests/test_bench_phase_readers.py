@@ -123,3 +123,26 @@ def test_phase_readers_through_a_tiny_cell_on_the_cpu(tmp_path):
     exe = got["copy_in_ms.b64"] + got["launch_ms.b64"] + got[
         "sync_wait_ms.b64"]
     assert exe == pytest.approx(got["execute_ms.b64"], rel=1e-6)
+
+
+def test_the_six_phase_readers_read_through_the_shared_module():
+    """Each phase reader is ``phases.mean_ms`` of its phase: a window of
+    500 bucket-64 steps (and 7 of bucket 1) whose phase i takes 0.2 x i
+    ms a step."""
+    from bench.harness import phases
+
+    before = _summary(100, 0.1, 1, 0.5)
+    win = _summary(500, 0.2, 1, 0.8, n1=7)
+    after = _summary(100, 0.1, 1, 0.5)
+    for b, parts in win["phase_s"].items():
+        acc = after["phase_s"].setdefault(b, {})
+        for k, v in parts.items():
+            acc[k] = acc.get(k, 0.0) + v
+    after["bucket_histogram"] = {1: 7, 64: 600}
+    ctx = _ctx(1, before, after)
+    assert phases.executions(ctx) == 500
+    for i, p in enumerate(PHASES, start=1):
+        assert phases.mean_ms(ctx, p) == pytest.approx(0.2 * i), p
+        if p in PHASE_READERS:
+            assert manifest.reader(f"{p}_ms.b64")(ctx) == \
+                phases.mean_ms(ctx, p)
