@@ -1,16 +1,20 @@
 """One run of one cell: set-up, the measured window, an optional traced
 stretch, the comparison with the reference, and the result line.
 
-The order is fixed by what each step may disturb. Set-up (the program's
-imports, kernel libraries from the compile cache, weights and the request
-pool from the seed, graph capture and a few warm steps of the cell's
-buckets) ends where the window starts; nothing is built inside it. With
-``--trace 1`` the window is followed by a stretch of the same traffic
-under ``torch.profiler`` alone (the program's own tracing stays off: its
-event a response would lengthen the very host phases the stretch names),
-so the window itself is never profiled. The peak device memory is read before the
-program's state is freed; only then does the reference run, on the card,
-in blocks, over the pool's images.
+What is built, driven and judged is the runner's (``Program``), which the
+cell's configuration names (``manifest.runner``); it judges by the
+reference of the same name under ``bench/reference/``, which this module
+hands it (``manifest.reference``). The order, the window, the traced
+stretch and the metrics are this module's, whatever the runner. The order
+is fixed by what each step may disturb. Set-up (the program's imports,
+kernel libraries from the compile cache, weights and the inputs from the
+seed, the program built and warmed on the shapes the cell uses) ends
+where the window starts; nothing is built inside it. With ``--trace 1``
+the window is followed by a stretch of the same traffic under
+``torch.profiler`` alone (the program's own tracing stays off: its event
+a response would lengthen the very host phases the stretch names), so
+the window itself is never profiled. The peak device memory is read
+before the program's state is freed; only then does the reference run.
 """
 from __future__ import annotations
 
@@ -19,12 +23,12 @@ import gc
 import sys
 import time
 from types import SimpleNamespace
+from typing import Protocol
 
 import numpy as np
 import torch
 
-from ..reference import snn
-from . import judge, manifest, profile, serve, traffic, weights
+from . import judge, manifest, profile
 
 TRACE_SECONDS = 3.0          # the traced stretch after the window
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -63,21 +67,64 @@ def _device_info(device, chips: int) -> dict:
                                      for d in range(chips))}
 
 
+class Program(Protocol):
+    """A runner's class, ``bench/runners/<name>.py``'s ``Program``:
+    ``Program(env, lap)`` is the program under test, built and warmed.
+    ``env`` holds the cell's entry (``cell``), its configuration (``cfg``)
+    and mix (``mix``), ``chips``, the torch device (``dev``), the ``seed``
+    and the checkout's ``root``; ``lap(name)`` closes a named phase of
+    set-up."""
+
+    def new_log(self):
+        """An empty log of a stretch of driving. Its ``step_array()`` maps
+        at least ``n`` (requests completed by the step), ``t_call`` and
+        ``t_done`` (perf_counter seconds around it) to an array a step."""
+
+    def drive(self, log, *, mix: dict, seed: int, start_s: float,
+              seconds: float) -> dict:
+        """Drives ``seconds`` of the mix, logging every step into ``log``
+        and opening ``profile.STEP_MARK`` around each; ``start_s`` (0 for
+        the window, its end for the traced stretch) keys the stretch's own
+        draws. Returns ``t0`` and ``t1``, the perf_counter seconds the
+        stretch ran over, and for an open loop ``due`` (the requests due
+        in it) and ``late`` (the generator's lateness: ``late_idle_s``,
+        ``late_all_s``)."""
+
+    def summary(self) -> dict:
+        """The program's counters, read before and after the window."""
+
+    def host_phases(self, log) -> list[tuple]:
+        """(name, t0, t1) perf_counter intervals of the host's work in a
+        stretch, in time order: what the idle gaps of a trace are
+        attributed to."""
+
+    def release(self) -> None:
+        """Frees the program's state, keeping what ``compare`` needs."""
+
+    def compare(self, window, traced, reference) -> SimpleNamespace:
+        """Runs ``reference`` (the module ``bench/reference/<runner>.py``;
+        a compare that calls none of it is refused) over what the window
+        (and the traced stretch, or None) produced and judges it:
+        ``checks`` ({name: (value, limit)}, all ``value <= limit`` for
+        ``correct``), ``attempted``, ``failed``, ``about`` (a few words for
+        the log) and ``ctx`` (the runner's fields for the metrics'
+        readers)."""
+
+
 def setup(cell: str, seed: int, *, t_start: float, device: str = "cuda",
           root=manifest.ROOT, w: dict | None = None) -> SimpleNamespace:
-    """Everything before the window: the cell's files, the weights and the
-    request pool from the seed, the runtime with its buckets captured and
-    warmed. ``setup_s`` runs from ``t_start`` to the end of it. ``w``, a
-    workload entry, stands in for a cell the manifest does not list."""
+    """Everything before the window: the cell's files and its runner, and
+    the program that runner builds and warms from the seed. ``setup_s``
+    runs from ``t_start`` to the end of it. ``w``, a workload entry,
+    stands in for a cell the manifest does not list."""
     man = manifest.load(root)
     w = w or manifest.workload(man, cell)
     cfg = manifest.config(man, w["config"], root)
     mix = manifest.traffic(w["traffic"], root)
+    runner = manifest.runner(cfg["runner"], root)
+    reference = manifest.reference(cfg["runner"], root)
     chips = w["chips"]
-    drive = serve.driver(w["traffic"], mix, root)
     dev = torch.device(device)
-    net = cfg["net"]
-    buckets = tuple(cfg["serve"]["buckets"])
     phases, t = {"start": time.perf_counter() - t_start}, time.perf_counter()
 
     def lap(name):
@@ -85,29 +132,12 @@ def setup(cell: str, seed: int, *, t_start: float, device: str = "cuda",
         now = time.perf_counter()
         phases[name], t = now - t, now
 
-    params, ths = weights.make(net, seed, dev)
-    ref_params, ref_ths = weights.copy(params, ths)
-    lap("weights")
-    pool = traffic.pool(cfg["dataset"], mix["pool"], seed)
-    draws = traffic.Draws(seed, mix["pool"])
-    lap("pool")
-    rt, model, handle = serve.build(cfg, params, ths, chips=chips, device=dev)
-    del params, ths
-    lap("build")
-    # a mix warms the largest bucket alone where it serves no other
-    warm = buckets[-1:] if mix.get("warm") == "largest" else buckets
-    handle.warmup(warm)
-    lap("capture")
-    client = serve.Client(rt, model, pool)
-    client.warm(warm, draws)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    lap("warm_steps")
+    prog = runner(SimpleNamespace(cell=w, cfg=cfg, mix=mix, chips=chips,
+                                  dev=dev, seed=seed, root=root), lap)
     return SimpleNamespace(
-        man=man, w=w, cfg=cfg, mix=mix, drive=drive, chips=chips, dev=dev,
-        net=net, pool=pool, draws=draws, rt=rt, client=client,
-        ref=(ref_params, ref_ths), n_warm=len(client.pool_of_rid),
-        setup_s=time.perf_counter() - t_start, setup_phases=phases)
+        man=man, w=w, cfg=cfg, mix=mix, chips=chips, dev=dev, prog=prog,
+        reference=reference, setup_s=time.perf_counter() - t_start,
+        setup_phases=phases)
 
 
 def run(cell: str, seed: int, seconds: float, trace: bool, *, t_start: float,
@@ -115,80 +145,66 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *, t_start: float,
     """Run ``cell`` once; returns the result line's object. ``device`` is
     the card unless a test drives the harness on the CPU."""
     s = setup(cell, seed, t_start=t_start, device=device, root=root)
-    man, w, cfg, mix, chips, net = s.man, s.w, s.cfg, s.mix, s.chips, s.net
-    dev, rt, client, draws, pool = s.dev, s.rt, s.client, s.draws, s.pool
-    n_warm, setup_s, ref_weights = s.n_warm, s.setup_s, s.ref
-    s_phases = s.setup_phases
-    window = serve.Log()
-    summary0 = rt.stats_summary()
+    man, w, cfg, mix, chips = s.man, s.w, s.cfg, s.mix, s.chips
+    dev, prog, setup_s, s_phases = s.dev, s.prog, s.setup_s, s.setup_phases
+    reference = Watched(s.reference)
+    del s
+    window = prog.new_log()
+    summary0 = prog.summary()
     watch = GcWatch()
     gc.callbacks.append(watch)
 
     # -- the window ---------------------------------------------------------
-    d = s.drive(client, draws, window, mix=mix, seed=seed, start_s=0.0,
-                seconds=seconds)
+    d = prog.drive(window, mix=mix, seed=seed, start_s=0.0, seconds=seconds)
     t0, t1 = d["t0"], d["t1"]
-    summary1 = rt.stats_summary()
+    summary1 = prog.summary()
     gc.callbacks.remove(watch)
 
     # -- the traced stretch -------------------------------------------------
     traced = None
     if trace:
         gc.collect()
-        traced = serve.Log()
+        traced = prog.new_log()
         prof = profile.start()
-        dt = s.drive(client, draws, traced, mix=mix, seed=seed,
-                     start_s=seconds, seconds=TRACE_SECONDS)
+        dt = prog.drive(traced, mix=mix, seed=seed, start_s=seconds,
+                        seconds=TRACE_SECONDS)
         trace_red = profile.reduce(prof, traced, dt["t0"], dt["t1"],
-                                   chips if dev.type == "cuda" else 0)
+                                   chips if dev.type == "cuda" else 0,
+                                   prog.host_phases(traced))
         log(f"[bench] traced stretch: {_rate(traced, dt['t0'], dt['t1']):.1f}"
             f" req/s over {dt['t1'] - dt['t0']:.3f} s, against "
             f"{_rate(window, t0, t1):.1f} in the window", file=sys.stderr)
 
     device_info = _device_info(dev, chips)
-    n_taken = len(client.pool_of_rid) - n_warm - rt.pending()
-    pool_of_rid = np.asarray(client.pool_of_rid, np.int64)
-    served = window.arrays()
-    if traced is not None:
-        more = traced.arrays()
-        served = {k: (np.concatenate([v, more[k]]) if v is not None
-                      else None) for k, v in served.items()}
-    del rt, client, s
+    prog.release()
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
     # -- the reference and the comparison -----------------------------------
     t_ref = time.perf_counter()
-    used = np.unique(pool_of_rid[n_warm:])
-    ref_params, ref_ths = ref_weights
-    ref_out = snn.run_blocks(ref_params, ref_ths, net, pool[used],
-                             block=cfg["reference_block"])
-    ref = judge.reference_answers(ref_out, net, used, len(pool))
-    checks = judge.compare(served, pool_of_rid, n_taken, ref, cfg["limits"])
-    log(f"[bench] reference over the {len(used)} pool images served in "
+    verdict = prog.compare(window, traced, reference)
+    if not reference.calls:
+        raise RuntimeError(f"the {cfg['runner']!r} runner judged the run "
+                           f"without calling its reference, "
+                           f"{reference.module.__file__}")
+    checks = verdict.checks
+    log(f"[bench] reference {verdict.about} in "
         f"{time.perf_counter() - t_ref:.2f} s", file=sys.stderr)
 
     # -- metrics ------------------------------------------------------------
     steps = window.step_array()
-    n_done = int(steps["n"].sum()) if len(window.steps) else 0
-    # what a metric's reader may read: the window's [t0, t1], its steps
-    # (serve.STEP_FIELDS), its requests (rids, and latencies of an open
-    # loop), the runtime's counters before and after it, the reference's
-    # answers by pool image, the net's stages, and with --trace 1 the
-    # traced stretch's reduction and its steps
+    n_done = int(steps["n"].sum())
+    # what a metric's reader may read: the window's [t0, t1] and its steps
+    # (the runner's ``step_array()``), the program's counters before and
+    # after it, with --trace 1 the traced stretch's reduction and its
+    # steps, and the runner's own fields (``Program.compare``)
     ctx = SimpleNamespace(
-        cell=w, cfg=cfg, mix=mix, chips=chips, setup_s=setup_s, t0=t0, t1=t1, steps=steps, n_done=n_done,
-        window_rids=(np.concatenate(window.rids) if window.rids
-                     else np.zeros(0, np.int64)),
-        latency_s=(np.concatenate(window.latency) if window.latency
-                   else np.zeros(0)),
-        summary=(summary0, summary1), pool_of_rid=pool_of_rid,
-        ref=ref, stages=snn.plan(net["spec"], net["input_hw"],
-                                 net["input_c"])[0],
+        cell=w, cfg=cfg, mix=mix, chips=chips, setup_s=setup_s, t0=t0, t1=t1,
+        steps=steps, n_done=n_done, summary=(summary0, summary1),
         trace=trace_red if trace else None,
-        traced_steps=traced.step_array() if traced else None,
-        traced_rids=traced.rids if traced else None)
+        traced_steps=traced.step_array() if traced is not None else None,
+        **verdict.ctx)
     wanted = (manifest.per_layer(man, cell) if trace
               else manifest.end_to_end(man, cell))
     metrics = {}
@@ -209,22 +225,20 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *, t_start: float,
             f"{_pct(late['late_idle_s'], 99):.1f} us over "
             f"{len(late['late_idle_s'])} admissions; every admission "
             f"p99 {_pct(late['late_all_s'], 99):.1f} us", file=sys.stderr)
-    hist = {k: v - summary0["bucket_histogram"].get(k, 0)
-            for k, v in summary1["bucket_histogram"].items()}
     log(f"[bench] {cell} seed {seed}: {n_done} requests in "
-        f"{t1 - t0:.3f} s, {len(window.steps)} steps, buckets {hist}, "
-        f"set-up {setup_s:.2f} s ("
+        f"{t1 - t0:.3f} s, {len(steps['n'])} steps, "
+        f"{_counted(summary0, summary1)}, set-up {setup_s:.2f} s ("
         + ", ".join(f"{k} {v:.2f}" for k, v in s_phases.items()) + ")",
         file=sys.stderr)
-    svc = steps["step_total_s"] if len(window.steps) else np.zeros(1)
+    svc = steps["t_done"] - steps["t_call"] if len(steps["n"]) else np.zeros(1)
     log(f"[bench] window: garbage collector {watch.summary() or 'idle'}; "
         f"step ms p50 {np.median(svc) * 1e3:.3f} max {svc.max() * 1e3:.3f}, "
         f"{int((svc > 2 * np.median(svc)).sum())} steps over twice the "
         f"median", file=sys.stderr)
 
-    result = {"correct": judge.passed(checks), "attempted": n_taken,
-              "failed": int(checks["missing"][0]), "metrics": metrics,
-              "device": device_info}
+    result = {"correct": judge.passed(checks),
+              "attempted": verdict.attempted, "failed": verdict.failed,
+              "metrics": metrics, "device": device_info}
     if trace:
         result["device"]["busy_s"] = trace_red["busy_s"]
         result["device"]["window_s"] = trace_red["window_s"]
@@ -238,8 +252,39 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *, t_start: float,
     return result
 
 
+class Watched:
+    """A reference module whose calls are counted: the harness hands it to
+    the runner's ``compare`` and refuses a verdict reached without it."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, 0
+
+    def __getattr__(self, name):
+        value = getattr(self.module, name)
+        if not callable(value) or isinstance(value, type):
+            return value
+
+        def call(*args, **kwargs):
+            self.calls += 1
+            return value(*args, **kwargs)
+        return call
+
+
+def _counted(summary0: dict, summary1: dict) -> str:
+    """The window's work by the program's flat counters: each of its
+    summary's dicts of numbers, less its reading before the window."""
+    out = []
+    for key, v1 in summary1.items():
+        if isinstance(v1, dict) and all(isinstance(v, (int, float))
+                                        for v in v1.values()):
+            v0 = summary0.get(key, {})
+            delta = {k: v - v0.get(k, 0) for k, v in v1.items()}
+            out.append(f"{key} {delta}")
+    return ", ".join(out) or "no counters"
+
+
 def _rate(log, t0, t1):
-    return sum(st[1] for st in log.steps) / max(t1 - t0, 1e-9)
+    return float(log.step_array()["n"].sum()) / max(t1 - t0, 1e-9)
 
 
 def _pct(a, q):

@@ -1,10 +1,12 @@
 """The benchmark's files, found by the names in ``BENCHMARK.json``.
 
 A cell names a configuration (``bench/configs/<name>.json``, the file the
-manifest gives) and a traffic mix (``bench/traffic/<name>.json``); every
-metric, end to end or per layer, is read by ``bench/metrics/<name>.py``'s
-``read(ctx)``. Adding a cell, a mix or a metric adds files and manifest
-entries and edits no file here.
+manifest gives) and a traffic mix (``bench/traffic/<name>.json``); the
+configuration names its runner (``"runner"``: ``bench/runners/<name>.py``),
+which builds, drives and judges the program by its reference
+(``bench/reference/<name>.py``, of the same name); every metric, end to end or per layer, is read by
+``bench/metrics/<name>.py``'s ``read(ctx)``. Adding a cell, a mix, a
+runner or a metric adds files and manifest entries and edits no file here.
 """
 from __future__ import annotations
 
@@ -69,11 +71,36 @@ def per_layer(manifest: dict, cell: str) -> list[dict]:
     return out
 
 
-def reader(name: str, root: Path = ROOT):
-    """``read(ctx) -> float | None`` of ``bench/metrics/<name>.py``."""
-    path = root / "bench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+def load_file(path: Path, kind: str):
+    """The module of the file ``path`` (a reader, a mix's driver, a
+    runner), loaded under a name of its ``kind`` and its stem."""
+    stem = path.stem.replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(f"bench_{kind}_{stem}",
+                                                  path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str, root: Path = ROOT):
+    """``read(ctx) -> float | None`` of ``bench/metrics/<name>.py``."""
+    return load_file(root / "bench" / "metrics" / f"{name}.py", "metric").read
+
+
+def _named_file(kind: str, folder: str, name: str, root: Path):
+    path = Path(root) / "bench" / folder / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"{kind} {name!r}: there is no {path}")
+    return load_file(path, kind)
+
+
+def runner(name: str, root: Path = ROOT):
+    """The ``Program`` class of ``bench/runners/<name>.py``, the runner a
+    configuration names (``cell.Program``)."""
+    return _named_file("runner", "runners", name, root).Program
+
+
+def reference(name: str, root: Path = ROOT):
+    """The module ``bench/reference/<name>.py``: the plain reference that
+    the runner of that name judges its program by."""
+    return _named_file("reference", "reference", name, root)

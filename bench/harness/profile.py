@@ -3,11 +3,11 @@ device's busy time, its top operations and its idle gaps by what the host
 was doing.
 
 Device intervals come from the profiler's device events, one union per
-card. Host phases come from each step's own telescoping clock reads
-(``batch_form_s``, ``service_s``, ``price_s`` on its responses) and the
-harness's own phases; they are read on ``time.perf_counter`` and moved
-onto the profiler's clock by the offset between each step's
-``bench.step`` marker and the harness's reading before it.
+card. Host phases are the runner's (``Program.host_phases``): named
+intervals read on ``time.perf_counter``, moved onto the profiler's clock
+by the offset between each step's ``bench.step`` marker (``STEP_MARK``,
+which the runner's drive opens around every step) and the step's
+``t_call``, the harness's reading before it.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ import collections
 import numpy as np
 import torch
 from torch.autograd import DeviceType
+
+STEP_MARK = "bench.step"
 
 
 def start():
@@ -41,34 +43,19 @@ def _union(iv: np.ndarray) -> np.ndarray:
     return np.stack([starts, stops], 1)
 
 
-def host_phases(log) -> list[tuple]:
-    """(name, t0, t1) on the perf_counter clock, in time order: per step
-    the runtime's batch forming (with the call into the step), execution
-    (copy in, replay, synchronize) and the pulls, pricing and response
-    assembly, laid back from the step's return, and the harness's own
-    work between steps."""
-    out = []
-    for st in log.steps:
-        service_s, price_s, t_call, t_done = st[3], st[4], st[6], st[7]
-        e1 = t_done - price_s
-        e0 = e1 - service_s
-        out += [("runtime.batch_form", t_call, e0),
-                ("runtime.execute", e0, e1),
-                ("runtime.pull_price_respond", e1, t_done)]
-    out += log.phases
-    return sorted(out, key=lambda p: p[1])
-
-
-def reduce(prof, log, t0: float, t1: float, n_devices: int) -> dict:
-    """The trace of the stretch [t0, t1] (perf_counter seconds):
-    ``busy_s`` (mean over the cards), ``window_s``, ``device_s`` (device
-    seconds by operation name, summed over the cards), ``device_ops`` and
-    ``idle_gaps`` (at most ten each, seconds, largest first)."""
+def reduce(prof, log, t0: float, t1: float, n_devices: int,
+           phases: list[tuple]) -> dict:
+    """The trace of the stretch [t0, t1] (perf_counter seconds) whose
+    steps ``log`` holds and whose host work ``phases`` names ((name, t0,
+    t1) in time order): ``busy_s`` (mean over the cards), ``window_s``,
+    ``device_s`` (device seconds by operation name, summed over the
+    cards), ``device_ops`` and ``idle_gaps`` (at most ten each, seconds,
+    largest first)."""
     prof.__exit__(None, None, None)
     events = prof.profiler.kineto_results.events()
-    marks = [e.start_ns() for e in events if e.name() == "bench.step"
+    marks = [e.start_ns() for e in events if e.name() == STEP_MARK
              and e.device_type() == DeviceType.CPU]
-    calls = [st[6] for st in log.steps]
+    calls = list(log.step_array()["t_call"])
     if len(marks) != len(calls) or not calls:
         raise RuntimeError(f"{len(marks)} step markers in the trace for "
                            f"{len(calls)} steps")
@@ -84,7 +71,6 @@ def reduce(prof, log, t0: float, t1: float, n_devices: int) -> dict:
         d = e.duration_ns()
         device_s[e.name()] += d * 1e-9
         per_dev[e.device_index()].append((max(s, lo), min(s + d, hi)))
-    phases = host_phases(log)
     ph_t0 = np.asarray([(p[1] + off) * 1e9 for p in phases])
     ph_t1 = np.asarray([(p[2] + off) * 1e9 for p in phases])
     idle = collections.Counter()

@@ -2,15 +2,16 @@
 and runs the closed or the open loop on the wall clock, keeping every
 response in a compact log for the comparison and the metrics.
 
-A traffic mix is driven by a function ``drive(client, draws, log, *,
-mix, seed, start_s, seconds) -> dict``: the built-in one of the mix's
-``kind`` (``closed``, ``poisson``), or the ``drive`` of the mix's own
-``bench/traffic/<name>.py`` where it has one. It serves ``seconds`` of the
-mix through the client, logging every step and response; ``start_s`` (0
-for the window, its end for the traced stretch after it) keys the
-stretch's own draws. It returns ``t0`` and ``t1``, the perf_counter
-seconds the stretch ran over, and for an open loop ``due``, the requests
-due in it, and ``late``, the generator's lateness (``open_loop``).
+A traffic mix of the SNN runner (``bench/runners/snn.py``) is driven by a
+function ``drive(client, draws, log, *, mix, seed, start_s, seconds) ->
+dict``: the built-in one of the mix's ``kind`` (``closed``, ``poisson``),
+or the ``drive`` of the mix's own ``bench/traffic/<name>.py`` where it has
+one. It serves ``seconds`` of the mix through the client, logging every
+step and response; ``start_s`` (0 for the window, its end for the traced
+stretch after it) keys the stretch's own draws. It returns ``t0`` and
+``t1``, the perf_counter seconds the stretch ran over, and for an open
+loop ``due``, the requests due in it, and ``late``, the generator's
+lateness (``open_loop``).
 
 Everything the program does happens inside ``ServeRuntime.step``; what the
 harness does between steps (admitting requests, recording responses,
@@ -18,14 +19,14 @@ waiting for the next arrival) is the client's work, and is kept small.
 """
 from __future__ import annotations
 
-import importlib.util
 import time
 from pathlib import Path
 
 import numpy as np
 from torch.profiler import record_function
 
-from . import traffic
+from . import manifest, traffic
+from .profile import STEP_MARK
 
 STEP_FIELDS = ("bucket", "n", "batch_form_s", "service_s", "price_s",
                "step_total_s", "t_call", "t_done")
@@ -149,7 +150,7 @@ def closed(client: Client, draws: traffic.Draws, seconds: float, log: Log,
     t_done = t0
     while t_done < t_end:
         t_call = clock()
-        with record_function("bench.step"):
+        with record_function(STEP_MARK):
             responses = rt.step()
         t_done = clock()
         log.add(responses, t_call, t_done)
@@ -186,7 +187,7 @@ def open_loop(client: Client, draws: traffic.Draws, due: np.ndarray,
         woke = False
         if rt.pending():
             t_call = clock()
-            with record_function("bench.step"):
+            with record_function(STEP_MARK):
                 responses = rt.step()
             t_done = clock()
             rids = log.add(responses, t_call, t_done)
@@ -229,11 +230,7 @@ def driver(name: str, mix: dict, root: Path):
     built-in one of its ``kind``."""
     path = Path(root) / "bench" / "traffic" / f"{name}.py"
     if path.is_file():
-        spec = importlib.util.spec_from_file_location(
-            f"bench_traffic_{name.replace('.', '_').replace('-', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.drive
+        return manifest.load_file(path, "traffic").drive
     if mix.get("kind") not in KINDS:
         raise ValueError(f"mix {name!r}: kind {mix.get('kind')!r} is not "
                          f"built in ({sorted(KINDS)}) and there is no "

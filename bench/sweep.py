@@ -4,8 +4,9 @@ knee: the highest rate the program serves without a growing backlog.
     python3 bench/sweep.py --config cifar10 --traffic open --seed 5 \\
         --seconds 5 --rates 6000,8000,10000,12000
 
-One process, one set-up, then an open loop of ``--seconds`` at each rate in
-turn (each stretch drains before the next). A line per rate: offered and
+One process, one set-up through the configuration's runner (as a cell's
+run), then the mix's drive over ``--seconds`` at each rate in turn (each
+stretch drains before the next). A line per rate: offered and
 completed rate over the stretch, the backlog at its end, the drain after
 it, the latency p50 / p99, and the median latency of its first and last
 second (a growing backlog shows as the last far above the first). The
@@ -39,7 +40,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from bench.harness import cell, serve, traffic
+    from bench.harness import cell, traffic
 
     if not torch.cuda.is_available():
         print("[sweep] needs a CUDA card", file=sys.stderr)
@@ -48,12 +49,12 @@ def main(argv=None) -> int:
     w = {"name": f"{args.config}.{args.traffic}", "config": args.config,
          "traffic": args.traffic, "chips": 1}
     s = cell.setup(w["name"], args.seed, t_start=T_START, w=w)
+    print(f"[sweep] {w['name']} through the {s.cfg['runner']!r} runner, "
+          f"set-up {s.setup_s:.2f} s", file=sys.stderr)
     for k, rate in enumerate(float(r) for r in args.rates.split(",")):
-        log = serve.Log()
-        d = serve.drive_poisson(s.client, s.draws, log,
-                                mix=dict(s.mix, rate_rps=rate),
-                                seed=args.seed, start_s=1000.0 * (k + 1),
-                                seconds=args.seconds)
+        log = s.prog.new_log()
+        d = s.prog.drive(log, mix=dict(s.mix, rate_rps=rate), seed=args.seed,
+                         start_s=1000.0 * (k + 1), seconds=args.seconds)
         t0, t_end = d["t0"], d["t1"]
         due = traffic.poisson(args.seed, rate, 1000.0 * (k + 1),
                               args.seconds) - 1000.0 * (k + 1)

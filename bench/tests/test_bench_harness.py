@@ -1,13 +1,14 @@
 """The harness's arithmetic and its manifest, on the CPU: rates over all
 the work and all the time, the tail over every request, the operation and
 byte counts behind ``mfu`` and ``b1_roofline`` at the CIFAR-10 shapes, the
-manifest's legal names, and a cell, a mix and a metric added as new files
-only."""
+manifest's legal names, and a cell, a mix, a metric and a runner added as
+new files only."""
 import json
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from bench.harness import manifest, roofline, serve, traffic
 from bench.reference import snn
@@ -233,6 +234,8 @@ def test_manifest_references_resolve():
         assert set(cfg["limits"]) == {"missing", "stats_mismatch_pct",
                                       "logit_gap", "energy_mismatch",
                                       "pred_mismatch"}
+        assert manifest.runner(cfg["runner"], ROOT)
+        assert manifest.reference(cfg["runner"], ROOT)
     for w in cells.values():
         assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         cfg = manifest.config(MAN, w["config"], ROOT)
@@ -279,6 +282,176 @@ def test_a_new_cell_mix_and_metric_are_new_files_only(tmp_path):
         orig = ROOT / rel
         if p.is_file() and orig in before:
             assert p.read_bytes() == before[orig], rel
+
+
+TOY_RUNNER = '''"""A two-layer MLP in plain torch, float32, served on the CPU in a closed
+loop of full batches drawn from a pool of rows; judged against the float64
+reference ``bench/reference/toy.py`` on weights and rows copied before the
+program saw them."""
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from bench.harness import profile
+
+
+class Log:
+    def __init__(self):
+        self.steps, self.rows, self.out = [], [], []
+
+    def step_array(self):
+        a = np.asarray(self.steps, np.float64).reshape(-1, 3)
+        return {"n": a[:, 0], "t_call": a[:, 1], "t_done": a[:, 2]}
+
+
+class Program:
+    new_log = Log
+
+    def __init__(self, env, lap):
+        d_in, d_hid, d_out = env.cfg["widths"]
+        g = torch.Generator().manual_seed(env.seed)
+        self.w1 = torch.randn(d_in, d_hid, generator=g) / d_in ** 0.5
+        self.w2 = torch.randn(d_hid, d_out, generator=g) / d_hid ** 0.5
+        self.pool = torch.randn(env.mix["pool"], d_in, generator=g)
+        self.ref = [t.double().numpy().copy()
+                    for t in (self.w1, self.w2, self.pool)]
+        self.limits = env.cfg["limits"]
+        lap("weights")
+        self.forward(self.pool[: env.mix["batch"]])
+        lap("warm_steps")
+
+    def forward(self, x):
+        return torch.relu(x @ self.w1) @ self.w2
+
+    def drive(self, log, *, mix, seed, start_s, seconds):
+        rng = np.random.default_rng([seed, int(start_s * 1e3)])
+        t0 = t_done = time.perf_counter()
+        while t_done < t0 + seconds:
+            rows = rng.integers(0, len(self.pool), mix["batch"])
+            t_call = time.perf_counter()
+            with record_function(profile.STEP_MARK):
+                out = self.forward(self.pool[rows])
+            t_done = time.perf_counter()
+            log.steps.append((len(rows), t_call, t_done))
+            log.rows.append(rows)
+            log.out.append(out.numpy())
+        return {"t0": t0, "t1": t_done}
+
+    def summary(self):
+        return {"steps": {"toy": 0}}
+
+    def host_phases(self, log):
+        return [("toy.forward", t_call, t_done)
+                for _, t_call, t_done in log.steps]
+
+    def release(self):
+        self.w1 = self.w2 = self.pool = None
+
+    def compare(self, window, traced, reference):
+        logs = [window] + ([traced] if traced is not None else [])
+        rows = np.concatenate([r for lg in logs for r in lg.rows])
+        out = np.concatenate([o for lg in logs for o in lg.out])
+        w1, w2, pool = self.ref
+        gap = float(np.abs(out - reference.mlp(w1, w2, pool[rows])).max())
+        checks = {"max_abs_gap": (gap, self.limits["max_abs_gap"])}
+        return SimpleNamespace(checks=checks, attempted=len(rows), failed=0,
+                               about=f"over {len(rows)} rows", ctx={})
+'''
+
+TOY_REFERENCE = '''"""The toy MLP in float64 NumPy."""
+import numpy as np
+
+
+def mlp(w1, w2, x):
+    return np.maximum(x @ w1, 0.0) @ w2
+'''
+
+
+def add_toy(root, runner=TOY_RUNNER, reference=TOY_REFERENCE):
+    """Adds to the checkout ``root`` the toy runner and its reference (each
+    where given), a configuration naming it, a mix and the cell
+    ``toy.closed``, which reports ``throughput_rps`` and ``setup_s`` and,
+    traced, ``steps_served``."""
+    (root / "bench/runners/toy.py").write_text(runner)
+    if reference is not None:
+        (root / "bench/reference/toy.py").write_text(reference)
+    (root / "bench/configs/toy.json").write_text(json.dumps(
+        {"name": "toy", "runner": "toy", "widths": [64, 128, 10],
+         "limits": {"max_abs_gap": 1e-4}}))
+    (root / "bench/traffic/toy_closed.json").write_text(json.dumps(
+        {"kind": "closed", "pool": 256, "batch": 32}))
+    man = json.loads((root / "BENCHMARK.json").read_text())
+    man["configs"].append({"name": "toy", "source": "test",
+                           "file": "bench/configs/toy.json", "reduced": [],
+                           "why": "test"})
+    man["workloads"].append({"name": "toy.closed", "config": "toy",
+                             "traffic": "toy_closed", "chips": 1,
+                             "why": "test"})
+    for key, name in (("end_to_end", "throughput_rps"),
+                      ("per_layer", "steps_served")):
+        next(m for m in man[key] if m["name"] == name)["workloads"].append(
+            "toy.closed")
+    (root / "BENCHMARK.json").write_text(json.dumps(man))
+
+
+def test_a_new_runner_is_new_files_only(tmp_path, monkeypatch):
+    """A configuration of another kind brings its runner as its own
+    ``bench/runners/<name>.py`` and its reference as
+    ``bench/reference/<name>.py``, beside its configuration, its mix and
+    its cell: the harness runs it to a correct result with its metrics
+    read, an answer altered where it is produced reads not correct, and no
+    file of the benchmark changes."""
+    root = tiny_checkout(tmp_path)
+    copied = {p: p.read_bytes() for p in (ROOT / "bench").rglob("*")
+              if p.is_file() and ".cache" not in p.parts
+              and "__pycache__" not in p.parts}
+    add_toy(root)
+
+    r = run_tiny(root, cell_name="toy.closed")
+    assert r["correct"], r["checks"]
+    assert set(r["metrics"]) == {"throughput_rps", "setup_s"}
+    assert all(m["value"] > 0 for m in r["metrics"].values())
+    assert r["attempted"] > 0 and r["failed"] == 0
+    assert r["checks"]["max_abs_gap"]["value"] < 1e-5
+    r = run_tiny(root, trace=True, cell_name="toy.closed")
+    assert r["correct"] and r["metrics"]["steps_served"]["value"] > 0
+    assert "busy_s" in r["device"] and "breakdown" in r
+
+    relu = torch.relu
+    monkeypatch.setattr(torch, "relu", lambda x: relu(x) + 1e-3)
+    r = run_tiny(root, cell_name="toy.closed")
+    assert not r["correct"], r["checks"]
+    assert r["checks"]["max_abs_gap"]["value"] > 1e-4
+    for orig, data in copied.items():
+        assert (root / orig.relative_to(ROOT)).read_bytes() == data, orig
+
+
+# a compare that reaches its verdict with a reference of its own
+SELF_JUDGED = TOY_RUNNER.replace("reference.mlp(w1, w2, pool[rows])",
+                                 "np.maximum(pool[rows] @ w1, 0.0) @ w2")
+
+
+@pytest.mark.parametrize("runner, reference, error, want", [
+    (TOY_RUNNER, None, ValueError,
+     r"reference 'toy': there is no .*bench/reference/toy\.py"),
+    (SELF_JUDGED, TOY_REFERENCE, RuntimeError,
+     r"'toy' runner judged the run without calling its reference, "
+     r".*bench/reference/toy\.py"),
+], ids=["no_reference_file", "reference_not_called"])
+def test_a_runner_is_judged_by_its_reference(tmp_path, runner, reference,
+                                             error, want):
+    """A runner is judged by the plain reference of its name under
+    ``bench/reference/``, which the harness hands its ``compare``: a
+    runner without that file is refused before anything is built, and a
+    verdict reached without calling it is refused, not reported."""
+    assert SELF_JUDGED != TOY_RUNNER
+    root = tiny_checkout(tmp_path)
+    add_toy(root, runner=runner, reference=reference)
+    with pytest.raises(error, match=want):
+        run_tiny(root, cell_name="toy.closed")
 
 
 BURST_DRIVE = '''"""Bursts of ``burst`` requests every ``period_s`` on the wall clock."""
@@ -381,6 +554,21 @@ def test_open_and_closed_cells_report_their_own_metrics(tmp_path):
 def test_an_unknown_kind_without_its_code_is_refused(tmp_path):
     with pytest.raises(ValueError, match="not built in"):
         serve.driver("nope", {"kind": "onoff"}, tmp_path)
+
+
+def test_an_unknown_runner_is_refused(tmp_path):
+    """A configuration whose runner has no file of its own fails before
+    anything is built, naming the file looked for."""
+    root = tiny_checkout(tmp_path)
+    cfg_path = root / "bench/configs/tiny.json"
+    cfg = json.loads(cfg_path.read_text())
+    assert cfg["runner"] == "snn"
+    cfg_path.write_text(json.dumps(dict(cfg, runner="nope")))
+    want = r"runner 'nope': there is no .*bench/runners/nope\.py"
+    with pytest.raises(ValueError, match=want):
+        manifest.runner("nope", root)
+    with pytest.raises(ValueError, match=want):
+        run_tiny(root)
 
 
 def test_a_listed_metric_that_reads_nothing_fails_the_run(tmp_path):

@@ -39,6 +39,8 @@ MODULES = sorted(BENCH.rglob("*.py"))
 def test_every_module_is_walked():
     assert BENCH / "run.py" in MODULES
     assert BENCH / "reference" / "snn.py" in MODULES
+    # the runners, which a configuration names
+    assert BENCH / "runners" / "snn.py" in MODULES
     assert any(p.parent.name == "metrics" for p in MODULES)
 
 
@@ -75,7 +77,8 @@ def test_the_program_loads_no_jax():
     import subprocess
 
     code = ("import sys; sys.path[:0] = [%r, %r]; "
-            "from bench.harness import cell, serve, profile; "
+            "from bench.harness import cell, manifest, serve, profile; "
+            "manifest.runner('snn'); "
             "import repro_torch.serve, repro_torch.parallel, repro_torch.obs; "
             "print(cell.forbidden_modules())"
             % (str(BENCH.parent), str(BENCH.parent / "src")))
