@@ -24,14 +24,24 @@ bucket:
 
 The :class:`ModelRegistry` LRU-bounds the handles themselves.
 
-:meth:`ModelHandle.run_bucket` takes the runtime's step (an ``obs.Split``)
-and cuts its execution into three phases on the runtime's clock:
-``copy_in``, ``launch`` and ``sync_wait``, each plan's replay a ``shard``
-region with its ``card``. Each :class:`GraphPlan` holds a pair of CUDA
-timing events, allocated once, that bound its replay on the card when the
-caller splits; after the host sync, ``run_bucket`` adds the time between
-them to the step's device seconds for that card. No event is allocated a
-step, and no host sync is added to the declared one
+A plan on the card launches without waiting: :meth:`ModelHandle.launch_bucket`
+copies a bucket in, replays its graph and enqueues the device-to-host
+copies of the valid prefix into pinned host buffers, and returns a
+:class:`Flight`; :meth:`ModelHandle.finish_bucket` waits on that bucket's
+own completion event (never the whole device, which may already run the
+next bucket) and gives the prefix in those buffers. Each plan keeps two
+slots, used in turn, of the pinned staging input, the pinned outputs and a
+pair of CUDA timing events, all allocated once, so a bucket can be
+launched while the one before it is still on the card.
+:meth:`ModelHandle.run_bucket` is the two in one call, for callers that
+want the answer at once (warm-up, tests).
+
+Both take the runtime's step (an ``obs.Split``) and cut the work into
+three phases on the runtime's clock: ``copy_in`` and ``launch`` at the
+launch, ``sync_wait`` at the finish, each plan's replay a ``shard`` region
+with its ``card``. When the launch was split, the finish adds each card's
+time between the bucket's two timing events to the step's device seconds.
+No event is allocated a step, and the one host sync is the declared one
 (``docs/OBSERVABILITY_TORCH.md``).
 
 Tracing (``repro_torch.obs``) uses the reference's names: ``serve.plan_hit``
@@ -64,24 +74,89 @@ from .batching import DEFAULT_BUCKETS
 # (zero cross-batch reductions — the mask contract is what makes padded
 # buckets safe; on the card the audit's harness holds each captured
 # graph's launches to the eager call's), and the one deliberate host sync
-# is the per-bucket block-until-ready in ``run_bucket`` (latency metering
-# needs the device done before the response timestamp).
+# is the per-bucket block-until-ready in ``Flight.wait`` (latency metering
+# needs the bucket done before the response timestamp).
 CONTRACT = BackendContract(name="serve",
                            allowed_host_syncs=("serve-block-until-ready",))
 
 
-def _slice_copies(logits, stats, n_valid: int):
-    """The valid prefix as tensors of its own (a later replay overwrites
-    the static outputs)."""
-    logits, stats = engine.slice_valid(logits, stats, n_valid)
-    return logits.clone(), engine.SNNStats(*(a.clone() for a in stats))
+class _HostOut:
+    """Pinned host buffers for a bucket's logits and five stats fields,
+    the shapes of the device outputs they receive."""
+
+    def __init__(self, logits, stats, rows: int):
+        def like(t):
+            return torch.empty((rows,) + tuple(t.shape[1:]), dtype=t.dtype,
+                               pin_memory=True)
+        self.logits = like(logits)
+        self.stats = engine.SNNStats(*(like(a) for a in stats))
+
+    def pull(self, logits, stats, n_valid: int) -> None:
+        """Enqueue the copies of the valid prefix on the current stream."""
+        self.logits[:n_valid].copy_(logits[:n_valid], non_blocking=True)
+        for dst, src in zip(self.stats, stats):
+            dst[:n_valid].copy_(src[:n_valid], non_blocking=True)
+
+    def view(self, n_valid: int):
+        return self.logits[:n_valid], engine.SNNStats(
+            *(a[:n_valid] for a in self.stats))
+
+
+class _Slot:
+    """One of a :class:`GraphPlan`'s two turns: the pinned staging of its
+    input, the pinned host copies of its outputs, and the timing events of
+    its replay (``ev_end`` also marks the replay's work on the card done)."""
+
+    def __init__(self, shape, logits, stats):
+        self.staging = torch.empty(shape, dtype=torch.float32,
+                                   pin_memory=True)
+        self.out = _HostOut(logits, stats, shape[0])
+        self.ev_start = torch.cuda.Event(enable_timing=True)
+        self.ev_end = torch.cuda.Event(enable_timing=True)
+
+
+class Flight:
+    """A bucket launched on the card and not yet answered.
+
+    ``done`` is the event recorded after the bucket's last work, the
+    copies of its valid prefix into ``out`` (pinned host buffers of its
+    ``plan``, which the flight keeps alive while the card may run it).
+    ``slots`` are the :class:`_Slot` of each card's replay, in card order;
+    ``timed`` says whether their start events were recorded. ``device``
+    is where the plan's outputs live."""
+
+    __slots__ = ("plan", "device", "done", "out", "n_valid", "slots",
+                 "timed")
+
+    def __init__(self, plan, device, done, out, n_valid, slots, timed):
+        self.plan, self.device, self.done, self.out = plan, device, done, out
+        self.n_valid, self.slots, self.timed = n_valid, slots, timed
+
+    def wait(self, split=obs.NO_SPLIT):
+        """Block until this bucket is done, add each card's replay
+        seconds to ``split.device`` where the launch was timed, and give
+        the valid prefix, as host tensors its plan reuses two launches
+        later."""
+        # audit: allow[host-sync] serve block-until-ready: latency
+        # metering must not timestamp the response before the bucket is
+        # done; this bucket's event alone, not the bucket launched after it
+        self.done.synchronize()
+        if self.timed and split.device is not None:
+            for card, slot in enumerate(self.slots):
+                split.device[card] = (
+                    split.device.get(card, 0.0)
+                    + slot.ev_start.elapsed_time(slot.ev_end) * 1e-3)
+        return self.out.view(self.n_valid)
 
 
 class EagerPlan:
     """A bucket's plan on the CPU: the engine's batched call, run eagerly.
     Its input is a view of the host array, so a split's ``copy_in`` holds
     nothing of it and the run is its ``launch``; nothing is timed on the
-    device."""
+    device. It has no device to overlap with, so it runs to its end when
+    called and offers no asynchronous launch."""
+
+    launches_async = False
 
     def __init__(self, runner, params, thresholds):
         self.runner, self.params, self.thresholds = runner, params, thresholds
@@ -92,12 +167,6 @@ class EagerPlan:
         split.to("launch")
         return self.runner(self.params, self.thresholds,
                            torch.from_numpy(images))
-
-    def mark_end(self, split) -> None:
-        pass
-
-    def add_device_seconds(self, device_s: dict, card: int = 0) -> None:
-        pass
 
     def __call__(self, images, n_valid: int, split=obs.NO_SPLIT):
         split.open("shard", card=0)
@@ -117,23 +186,28 @@ class GraphPlan:
     moved by the wrappers during capture): every replay runs exactly these.
     A capture that fails raises; nothing falls back to eager execution.
 
-    ``ev_start`` and ``ev_end``, a pair of timing events allocated here
-    once, bound each replay made for a split (``split.device`` not None)
-    on ``stream``, the stream current on the plan's device when it was
-    built, which serving replays on: ``ev_start`` is recorded just before
-    the input's host-to-device copy, ``ev_end`` (:meth:`mark_end`) after
-    the last work the plan enqueues there (the valid-prefix copies; in a
-    :class:`ShardedPlan`, the shard's replay, and on the first card the
-    gather). The span between them counts any gap inside it as busy, so
-    it bounds the card's busy time from above.
+    Two :class:`_Slot` are used in turn, a replay each (``slot`` is the
+    last one's): the host's copy into a slot's pinned staging never races
+    the host-to-device copy of the replay before, which may still read the
+    other slot. Work is enqueued on ``stream``, the stream current on the
+    plan's device when it was built, which serving replays on, in stream
+    order: the next input copy and replay run after this replay's
+    valid-prefix copies, so the static outputs need no copy on the device.
+    A slot's ``ev_start`` is recorded just before the input's
+    host-to-device copy when the replay is timed for a split
+    (``split.device`` not None), and its ``ev_end`` (:meth:`mark_end`)
+    after the last work the plan enqueues there (the valid-prefix copies;
+    in a :class:`ShardedPlan`, the shard's replay, and on the first card
+    the gather and its copies). The span between them counts any gap
+    inside it as busy, so it bounds the card's busy time from above.
     """
+
+    launches_async = True
 
     def __init__(self, runner, params, thresholds, shape, device, pool):
         # the graph reads these tensors' memory: the plan keeps them alive
         self.params, self.thresholds = params, thresholds
         self.images = torch.zeros(shape, dtype=torch.float32, device=device)
-        self.staging = torch.empty(shape, dtype=torch.float32,
-                                   pin_memory=True)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -148,41 +222,40 @@ class GraphPlan:
             self.logits, self.stats = runner(params, thresholds, self.images)
         self.launches = {k: ops.launch_counts[k] - before[k] for k in before}
         self.stream = torch.cuda.current_stream(device)
-        self.ev_start = torch.cuda.Event(enable_timing=True)
-        self.ev_end = torch.cuda.Event(enable_timing=True)
+        self._slots = [_Slot(shape, self.logits, self.stats)
+                       for _ in range(2)]
+        self.slot = self._slots[1]
 
     def replay(self, images, split=obs.NO_SPLIT):
-        """Copy host images in and replay; the static outputs, all rows
-        (a later replay overwrites them)."""
+        """Copy host images in through the next slot and replay; the
+        static outputs, all rows (a later replay overwrites them)."""
         split.to("copy_in")
+        self.slot = slot = self._slots[self._slots[0] is self.slot]
         # host images go to the static input through pinned memory
-        self.staging.copy_(torch.from_numpy(images))
+        slot.staging.copy_(torch.from_numpy(images))
         if split.device is not None:
-            self.ev_start.record(self.stream)
-        self.images.copy_(self.staging, non_blocking=True)
+            slot.ev_start.record(self.stream)
+        self.images.copy_(slot.staging, non_blocking=True)
         split.to("launch")
         self.graph.replay()
         return self.logits, self.stats
 
-    def mark_end(self, split) -> None:
-        """Record ``ev_end`` after the work enqueued on this card so far,
-        when the replay was timed for ``split``."""
-        if split.device is not None:
-            self.ev_end.record(self.stream)
+    def mark_end(self) -> None:
+        """Record the last slot's ``ev_end`` after the work enqueued on
+        this card so far."""
+        self.slot.ev_end.record(self.stream)
 
-    def add_device_seconds(self, device_s: dict, card: int = 0) -> None:
-        """Add the last timed replay's seconds between its events to
-        ``device_s[card]``; the card must be done with it (a host sync, or
-        a sync of a card whose stream waited on this one's)."""
-        device_s[card] = (device_s.get(card, 0.0)
-                          + self.ev_start.elapsed_time(self.ev_end) * 1e-3)
-
-    def __call__(self, images, n_valid: int, split=obs.NO_SPLIT):
+    def launch(self, images, n_valid: int, split=obs.NO_SPLIT) -> Flight:
+        """Replay a bucket and enqueue its valid prefix's copies to the
+        slot's pinned outputs; returns without waiting for the card."""
         split.open("shard", card=0)
-        out = _slice_copies(*self.replay(images, split), n_valid)
-        self.mark_end(split)
+        logits, stats = self.replay(images, split)
+        slot = self.slot
+        slot.out.pull(logits, stats, n_valid)
+        self.mark_end()
         split.close()
-        return out
+        return Flight(self, self.images.device, slot.ev_end, slot.out,
+                      n_valid, (slot,), split.device is not None)
 
 
 class ShardedPlan:
@@ -196,11 +269,17 @@ class ShardedPlan:
     prefix needs no copy. Card ``i`` is the shard's position in the mesh
     (on ``data_mesh(n)``, the card's index).
 
+    Over graph shards it launches asynchronously, as a :class:`GraphPlan`
+    does: the valid prefix is copied from the gathered tensors on the first
+    card into two sets of pinned host buffers of its own, used in turn, and
+    the first card's end event, recorded after those copies, marks the
+    bucket done. Over eager shards (the CPU) it runs to its end when called.
+
     The gather runs each copy on its source card's stream after that
     stream waited for the first card's, and the first card's stream waits
     for each copy. So the other cards' end events are recorded before the
     gather (their spans leave the wait out), the first card's after it,
-    and a host sync of the first card finds every card's events done.
+    and the first card's end event done finds every card's events done.
     """
 
     def __init__(self, shards, device):
@@ -209,12 +288,15 @@ class ShardedPlan:
         for plan in shards:
             for name, n in plan.launches.items():
                 self.launches[name] = self.launches.get(name, 0) + n
+        self.launches_async = all(p.launches_async for p in shards)
+        if self.launches_async:
+            first = shards[0]
+            rows = first.images.shape[0] * len(shards)
+            self._outs = [_HostOut(first.logits, first.stats, rows)
+                          for _ in range(2)]
 
-    def add_device_seconds(self, device_s: dict) -> None:
-        for card, plan in enumerate(self.shards):
-            plan.add_device_seconds(device_s, card)
-
-    def __call__(self, images, n_valid: int, split=obs.NO_SPLIT):
+    def _replay(self, images, split):
+        """Every shard's replay, in shard order; their outputs."""
         k = images.shape[0] // len(self.shards)
         outs = []
         for i, plan in enumerate(self.shards):
@@ -222,12 +304,25 @@ class ShardedPlan:
             outs.append(plan.replay(images[i * k:(i + 1) * k], split))
             split.close()
         split.to("launch")
-        first, *rest = self.shards
-        for plan in rest:
-            plan.mark_end(split)
-        out = engine.slice_valid(*gather(outs, self.device), n_valid)
-        first.mark_end(split)
-        return out
+        return outs
+
+    def __call__(self, images, n_valid: int, split=obs.NO_SPLIT):
+        outs = self._replay(images, split)
+        return engine.slice_valid(*gather(outs, self.device), n_valid)
+
+    def launch(self, images, n_valid: int, split=obs.NO_SPLIT) -> Flight:
+        outs = self._replay(images, split)
+        for plan in self.shards[1:]:
+            plan.mark_end()
+        logits, stats = gather(outs, self.device)
+        self._outs.reverse()
+        out = self._outs[0]
+        out.pull(logits, stats, n_valid)
+        first = self.shards[0]
+        first.mark_end()
+        return Flight(self, self.device, first.slot.ev_end, out, n_valid,
+                      tuple(p.slot for p in self.shards),
+                      split.device is not None)
 
 
 class ModelHandle:
@@ -367,9 +462,11 @@ class ModelHandle:
     def adopt_plan(self, bucket: int, plan) -> None:
         """Install a ready plan for ``bucket`` — ``plan(images, n_valid,
         split) -> (logits, stats)`` of the valid prefix, for a (B, H, W, C)
-        float32 numpy bucket, with ``add_device_seconds(device_s)``, as
-        :class:`GraphPlan` and :class:`EagerPlan` are (``build_plan`` makes
-        one). It
+        float32 numpy bucket, as :class:`EagerPlan` is; or, with
+        ``launches_async`` true, ``plan.launch(images, n_valid, split)``
+        returning a flight whose ``wait(split)`` gives that prefix and
+        whose ``device`` is the plan's, as :class:`GraphPlan` is
+        (``build_plan`` makes one). It
         enters the same LRU but does **not** bump ``compile_count``: an
         adopted plan is a cache hit by construction, so the warmup guard
         keeps working (``serve/persist.py`` restores a checkpoint's plans
@@ -379,38 +476,73 @@ class ModelHandle:
         obs.counter("serve.plan_adopt")
         self._evict()
 
-    def run_bucket(self, images, n_valid: int, split=obs.NO_SPLIT):
-        """Execute one padded (B, H, W, C) bucket of host images; return the
-        valid prefix (see the engine's mask contract) as tensors that no
-        later bucket overwrites.
+    def launches_async(self, bucket: int) -> bool:
+        """Whether a bucket of this size launches without waiting for the
+        device (:meth:`launch_bucket`): its cached plan says so
+        (``launches_async``); a plan not built yet would be a CUDA graph
+        on the card, the eager call on the CPU."""
+        plan = self._plans.get(bucket)
+        if plan is None:
+            return self.device.type == "cuda"
+        return getattr(plan, "launches_async", False)
 
-        Synchronizes the device before returning, so the caller's clock
-        read after it covers the bucket's execution.
+    def launch_bucket(self, images, n_valid: int, split=obs.NO_SPLIT):
+        """Launch one padded (B, H, W, C) bucket of host images through a
+        plan that launches asynchronously (:meth:`launches_async`), and
+        return its :class:`Flight` without waiting for the device.
 
-        ``split`` (an ``obs.Split``, the runtime's step) is cut into three
+        ``split`` (an ``obs.Split``, the runtime's step) is cut into two
         phases, each summed over shards: ``copy_in`` (the plan lookup, the
         contiguous copy, the pinned staging copy and the host-to-device
-        enqueue), ``launch`` (the graph replay, the valid-prefix copies
-        and on a mesh the gather's enqueue) and ``sync_wait`` (the one
-        host sync, then the device-time reads), left running for the
-        caller to end; each plan's replay is a ``shard`` region with its
-        ``card``. On the card, ``split.device[card]`` gains each replay's
-        seconds between its timing events (:class:`GraphPlan`).
+        enqueue) and ``launch`` (the graph replay, on a mesh the gather,
+        and the valid prefix's device-to-host enqueue); each plan's replay
+        is a ``shard`` region with its ``card``.
         """
         split.to("copy_in")
         images = np.ascontiguousarray(images, np.float32)
         bucket = images.shape[0]
-        plan = self.plan_for(bucket)
-        out = plan(images, n_valid, split)
+        flight = self.plan_for(bucket).launch(images, n_valid, split)
+        self.replay_count[bucket] += 1
+        return flight
+
+    def finish_bucket(self, flight, split=obs.NO_SPLIT):
+        """Wait for a launched bucket (``sync_wait``, left running for the
+        caller to end: the wait on its own completion event, then the
+        device-event reads) and return its valid prefix, as host tensors
+        in its plan's pinned buffers, which a later launch of the plan
+        reuses. On the card, ``split.device[card]`` gains each replay's
+        seconds between its timing events when the launch was split."""
+        split.to("sync_wait")
+        return flight.wait(split)
+
+    def run_bucket(self, images, n_valid: int, split=obs.NO_SPLIT):
+        """Execute one padded (B, H, W, C) bucket of host images; return the
+        valid prefix (see the engine's mask contract) as tensors on the
+        plan's device that no later bucket overwrites.
+
+        Waits for the bucket before returning, so the caller's clock read
+        after it covers the bucket's execution: :meth:`launch_bucket` then
+        :meth:`finish_bucket`, whose phases it cuts ``split`` into, where
+        the plan launches asynchronously; else the plan's call
+        (``copy_in`` the lookup and copy, ``launch`` the run) and an empty
+        ``sync_wait`` (a full device sync on the card).
+        """
+        if self.launches_async(np.shape(images)[0]):
+            flight = self.launch_bucket(images, n_valid, split)
+            logits, stats = self.finish_bucket(flight, split)
+            return (logits.to(flight.device, copy=True),
+                    engine.SNNStats(*(a.to(flight.device, copy=True)
+                                      for a in stats)))
+        split.to("copy_in")
+        images = np.ascontiguousarray(images, np.float32)
+        bucket = images.shape[0]
+        out = self.plan_for(bucket)(images, n_valid, split)
         self.replay_count[bucket] += 1
         split.to("sync_wait")
         if self.device.type == "cuda":
-            # audit: allow[host-sync] serve block-until-ready: latency
-            # metering must not timestamp the response before the device
-            # is done
+            # audit: allow[host-sync] serve block-until-ready: a plan that
+            # cannot launch asynchronously is waited for with the device
             torch.cuda.synchronize(self.device)
-            if split.device is not None:
-                plan.add_device_seconds(split.device)
         return out
 
     def warmup(self, buckets=DEFAULT_BUCKETS) -> None:

@@ -13,20 +13,29 @@ times (``submit(arrival_s=)``, ``step(now=)``).
 Each step is cut into seven phases (:data:`PHASES`: ``batch_form``,
 ``copy_in``, ``launch``, ``sync_wait``, ``pull``, ``price``,
 ``respond``) at shared reads of that clock, through an ``obs.Split`` the
-step hands to ``ModelHandle.run_bucket``. The phases telescope to the
-step; ``stats_summary()`` sums them per bucket (``phase_s``), with each
+step hands to the handle (``launch_bucket`` and ``finish_bucket``, or
+``run_bucket``). ``batch_form``, ``copy_in`` and ``launch`` cover the
+batches the step launched, the rest the batch it answered. The phases
+telescope to the step; ``stats_summary()`` sums them per bucket of the
+answered batch (``phase_s``), with each
 card's device time between a replay's timing events (``device_s``),
 always on. With tracing on they are the ``serve.step`` span tree
 (:data:`STEP_SPANS`), and while a ``torch.profiler`` session records,
 ``record_function`` ranges of the same names
 (``docs/OBSERVABILITY_TORCH.md``).
 
-Each :meth:`ServeRuntime.step` forms ONE batch: it picks the next model
-(the oldest request of a model other than the one just served, so one
-model's stream cannot starve the rest), gathers up to ``max_bucket`` of its
-waiting requests, pads to the policy's bucket, runs the handle on the
-device and slices the valid prefix (the engine's mask contract keeps padded
-slots inert). Each request's (1, L) stats row is priced through
+Each :meth:`ServeRuntime.step` answers ONE batch. A batch is formed by
+picking the next model (the oldest request of a model other than the one
+just served, so one model's stream cannot starve the rest), gathering up
+to ``max_bucket`` of its waiting requests and padding to the policy's
+bucket; the handle runs it and gives the valid prefix (the engine's mask
+contract keeps padded slots inert). On a plan that launches
+asynchronously (a CUDA graph) a step launches the next batch before it
+waits for the one it answers when that next batch is a full
+``max_bucket``, so the card runs one batch while the host prices and
+answers the other (``stats_summary()["launched_ahead"]``); at most one
+batch is in flight between steps, and ``pending()`` counts its requests.
+Each request's (1, L) stats row is priced through
 ``study.price_record`` into its response's ``energy_j`` /
 ``model_latency_s``; the batch is priced in one call, which equals pricing
 each row alone because pricing is elementwise per sample.
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import collections
 import time
+import weakref
 
 import numpy as np
 
@@ -47,7 +57,9 @@ from .registry import ModelRegistry
 
 #: A served step's phases, in order; they telescope to ``step_total_s``.
 #: ``copy_in + launch + sync_wait`` is ``service_s`` and ``pull + price +
-#: respond`` is ``price_s``.
+#: respond`` is ``price_s``. A step that launches two batches (the one it
+#: answers, then one ahead) passes ``batch_form``, ``copy_in`` and
+#: ``launch`` twice.
 PHASES = ("batch_form", "copy_in", "launch", "sync_wait", "pull", "price",
           "respond")
 #: The spans of a traced step (``obs``) and the profiler ranges it mirrors:
@@ -55,11 +67,38 @@ PHASES = ("batch_form", "copy_in", "launch", "sync_wait", "pull", "price",
 #: holds ``serve.copy_in``, one ``serve.shard`` a card, each holding its
 #: ``serve.copy_in`` and ``serve.launch``, then, on a mesh, the gather's
 #: ``serve.launch``, and ``serve.sync_wait``), ``serve.pull``,
-#: ``serve.price`` and ``serve.respond``.
+#: ``serve.price`` and ``serve.respond``. On a plan that launches
+#: asynchronously each launch is a ``serve.batch_form`` and a
+#: ``serve.execute`` without ``serve.sync_wait``, and the answered batch's
+#: wait an ``serve.execute`` of its own holding ``serve.sync_wait``.
 STEP_SPANS = ("serve.step", "serve.batch_form", "serve.execute",
               "serve.copy_in", "serve.shard", "serve.launch",
               "serve.sync_wait", "serve.pull", "serve.price",
               "serve.respond")
+
+
+class _Batch:
+    """A formed batch: its model's handle, its requests and bucket, its
+    ``flight`` while it runs on the card (else ``out``, its outputs, run to
+    its end), and the clock reads that began and ended its launch."""
+
+    __slots__ = ("model", "handle", "taken", "bucket", "flight", "out",
+                 "t_exec0", "t_exec1")
+
+    def __init__(self, model, handle, taken, bucket, flight, out, t_exec0,
+                 t_exec1):
+        self.model, self.handle, self.taken = model, handle, taken
+        self.bucket, self.flight, self.out = bucket, flight, out
+        self.t_exec0, self.t_exec1 = t_exec0, t_exec1
+
+
+def _settle(in_flight: list) -> None:
+    """Wait for the batches a runtime launched and never answered, so their
+    plans and buffers outlive the card's use of them."""
+    for batch in in_flight:
+        if batch.flight is not None:
+            batch.flight.wait()
+    in_flight.clear()
 
 
 class ServeRuntime:
@@ -88,6 +127,13 @@ class ServeRuntime:
         self.bucket_histogram: collections.Counter = collections.Counter()
         self.phase_s: dict = {}      # bucket -> {phase: seconds}
         self.device_s: dict = {}     # bucket -> {card: device seconds}
+        # batches launched while another was in flight, by bucket
+        self.launched_ahead: collections.Counter = collections.Counter()
+        # the batches launched and not yet answered (at most two, inside a
+        # step); waited for when the runtime goes, so that nothing the card
+        # still runs is freed
+        self._in_flight: list[_Batch] = []
+        weakref.finalize(self, _settle, self._in_flight)
 
     # -- admission ---------------------------------------------------------
 
@@ -122,7 +168,8 @@ class ServeRuntime:
         return rid
 
     def pending(self) -> int:
-        return len(self.queue)
+        """Requests queued or in a batch launched and not yet answered."""
+        return len(self.queue) + sum(len(b.taken) for b in self._in_flight)
 
     # -- the batcher -------------------------------------------------------
 
@@ -163,14 +210,36 @@ class ServeRuntime:
         self.queue.extendleft(reversed(skipped))
         return taken
 
+    def _full_bucket_next(self) -> bool:
+        """Whether the batch the next call would form is a full
+        ``max_bucket`` of one model whose plan launches asynchronously:
+        waiting longer could not grow it."""
+        if not self.queue:
+            return False
+        model = self._next_model()
+        bucket = self.policy.max_bucket
+        return (self._pending[model] >= bucket and model in self.registry
+                and self.registry.get(model).launches_async(bucket))
+
     def step(self, now: float | None = None) -> list[InferResponse]:
-        """Form, execute, and meter one batch; [] when the queue is empty.
+        """Form, execute, and meter one batch; [] when nothing is queued
+        or in flight.
+
+        Through a plan that launches asynchronously (on the card,
+        ``ModelHandle.launches_async``) the step keeps at most one batch
+        in flight beyond the one it answers: it launches the batch it
+        answers if none is in flight, then, when the batch it would form
+        next is a full ``max_bucket`` of one model, forms and launches
+        that one too (``launched_ahead``), so the card runs it while the
+        host waits for, prices and answers the older batch, whose
+        responses it returns. On any other plan it forms, runs and answers
+        one batch.
 
         ``now`` is the batch launch time for queue-wait accounting; leave
         it None to read ``self.clock()`` (virtual-clock benches pass their
         simulated time instead).
         """
-        if not self.queue:
+        if not self.queue and not self._in_flight:
             return []
         split = obs.split(self.clock, PHASES, "serve.")
         try:
@@ -181,53 +250,51 @@ class ServeRuntime:
 
     def _step(self, split, now: float | None) -> list[InferResponse]:
         # the step is cut into PHASES at shared clock reads (obs.Split):
-        # [t_step0, t_exec0) batch_form; [t_exec0, t_exec1) execute,
-        # whose copy_in, launch and sync_wait run_bucket cuts; [t_exec1,
-        # t_done) pull, price and respond. The phases telescope to the
-        # step total, and the three response fields to it too (pinned by
-        # tests/test_torch_obs.py and tests/test_torch_serve_phases.py)
-        t_step0 = split.t
+        # each launch a batch_form then an execute region (copy_in and
+        # launch, which the handle cuts; a plan that cannot launch
+        # asynchronously runs to its end there, sync_wait too), then the
+        # answered batch's sync_wait, and [t_exec1, t_done) its pull,
+        # price and respond. The phases telescope to the step total, and
+        # the three response fields to it too (pinned by
+        # tests/test_torch_obs.py, tests/test_torch_serve_phases.py and
+        # tests/test_torch_serve_lookahead.py)
+        t_step0 = t_exec0 = split.t
         split.open("step")
-        split.to("batch_form")
-        model = self._next_model()
-        try:
-            handle = self.registry.get(model)
-        except ServeError:
-            # the model was LRU-evicted since submit. Reject ITS queued
-            # requests loudly (the error names every dropped rid) but keep
-            # the rest of the queue intact — one dead model must neither
-            # silently lose work nor wedge serving for the healthy ones
-            dead = [r.rid for r in self.queue if r.model == model]
-            self.queue = collections.deque(
-                r for r in self.queue if r.model != model)
-            self._pending.pop(model, None)
-            raise ServeError(
-                f"model {model!r} is no longer registered; rejected its "
-                f"queued request(s) rid={dead} (other models' requests "
-                "remain queued)") from None
-        taken = self._take_batch(model)
-        self._last_model = model
-        bucket = self.policy.select(len(taken))
-        if bucket < len(taken):
-            # the policy rounded down (serve a full bucket now rather than
-            # pad past half): requeue the tail at the front, order intact
-            self.queue.extendleft(reversed(taken[bucket:]))
-            taken = taken[:bucket]
-        padded = self.policy.pad(np.stack([r.image for r in taken]), bucket)
-
-        t_exec0 = split.to(None)
-        launch = t_exec0 if now is None else now
-        split.open("execute", model=model, bucket=bucket, valid=len(taken))
-        # synchronizes the device before it returns
-        logits, stats = handle.run_bucket(padded, len(taken), split)
-        t_exec1 = split.to(None)
-        split.close()
-        service_s = t_exec1 - t_exec0
-        batch_form_s = t_exec0 - t_step0
+        pre = 0.0        # execute seconds before this call's last batch_form
+        launched = not self._in_flight
+        if launched:
+            self._in_flight.append(self._launch(split))
+        batch = self._in_flight[0]
+        if launched:
+            t_exec0 = batch.t_exec0
+        if batch.flight is not None and self._full_bucket_next():
+            if launched:
+                pre = batch.t_exec1 - batch.t_exec0
+            ahead = self._launch(split)
+            self._in_flight.append(ahead)
+            t_exec0 = ahead.t_exec0
+            self.launched_ahead[ahead.bucket] += 1
+            obs.counter("serve.launched_ahead")
+        del self._in_flight[0]
+        model, bucket, taken = batch.model, batch.bucket, batch.taken
+        if batch.flight is None:
+            logits, stats = batch.out
+            t_exec1 = batch.t_exec1
+        else:
+            split.open("execute", model=model, bucket=bucket,
+                       valid=len(taken))
+            logits, stats = batch.handle.finish_bucket(batch.flight, split)
+            t_exec1 = split.to(None)
+            split.close()
+        # the answered batch's execute ends at t_exec1; this call's batch
+        # forming precedes t_exec0 and, when it launched two batches, the
+        # first one's execute (pre) too
+        service_s = t_exec1 - t_exec0 + pre
+        batch_form_s = t_exec0 - t_step0 - pre
+        launch = t_exec0 - pre if now is None else now
         pad_fraction = (bucket - len(taken)) / bucket
 
         split.to("pull")
-        self._pending[model] -= len(taken)
         self.n_batches += 1
         self.n_served += len(taken)
         self.n_padded_slots += bucket - len(taken)
@@ -239,11 +306,12 @@ class ServeRuntime:
             obs.counter("serve.requests", len(taken))
 
         # audit: allow[host-sync] the responses leave the device: the
-        # bucket's logits and stats (run_bucket has synchronized already)
-        logits = logits.cpu().numpy()
+        # bucket's logits and stats (finished or run to its end above), as
+        # copies of their own, since a plan reuses its host buffers
+        logits = logits.cpu().numpy().copy()
         ev, sp, ao, ovf, qw = (
             # audit: allow[host-sync] the same pull, one stats field each
-            getattr(stats, f).cpu().numpy()
+            getattr(stats, f).cpu().numpy().copy()
             for f in ("events_in", "spikes_out", "add_ops", "overflow",
                       "queue_words"))
 
@@ -251,6 +319,7 @@ class ServeRuntime:
         # elementwise per sample, so row i of a batch pricing bit-equals
         # pricing row i alone)
         split.to("price", model=model, valid=len(taken))
+        handle = batch.handle
         batch_record = StatsRecord(events_in=ev, spikes_out=sp, add_ops=ao,
                                    queue_words=qw, overflow=ovf)
         e = price_record(batch_record, input_hw=handle.cfg.input_hw,
@@ -302,6 +371,51 @@ class ServeRuntime:
                 obs.observe("serve.request_latency_s", resp.latency_s)
         return responses
 
+    def _launch(self, split) -> "_Batch":
+        """Form the next batch (``batch_form``) and launch it (an
+        ``execute`` region): through a plan that launches asynchronously
+        it is left in flight, else it runs to its end here."""
+        split.to("batch_form")
+        model = self._next_model()
+        try:
+            handle = self.registry.get(model)
+        except ServeError:
+            # the model was LRU-evicted since submit. Reject ITS queued
+            # requests loudly (the error names every dropped rid) but keep
+            # the rest of the queue intact — one dead model must neither
+            # silently lose work nor wedge serving for the healthy ones
+            dead = [r.rid for r in self.queue if r.model == model]
+            self.queue = collections.deque(
+                r for r in self.queue if r.model != model)
+            self._pending.pop(model, None)
+            raise ServeError(
+                f"model {model!r} is no longer registered; rejected its "
+                f"queued request(s) rid={dead} (other models' requests "
+                "remain queued)") from None
+        taken = self._take_batch(model)
+        self._last_model = model
+        bucket = self.policy.select(len(taken))
+        if bucket < len(taken):
+            # the policy rounded down (serve a full bucket now rather than
+            # pad past half): requeue the tail at the front, order intact
+            self.queue.extendleft(reversed(taken[bucket:]))
+            taken = taken[:bucket]
+        self._pending[model] -= len(taken)
+        padded = self.policy.pad(np.stack([r.image for r in taken]), bucket)
+
+        t_exec0 = split.to(None)
+        split.open("execute", model=model, bucket=bucket, valid=len(taken))
+        flight = out = None
+        if handle.launches_async(bucket):
+            flight = handle.launch_bucket(padded, len(taken), split)
+        else:
+            # synchronizes the device before it returns
+            out = handle.run_bucket(padded, len(taken), split)
+        t_exec1 = split.to(None)
+        split.close()
+        return _Batch(model, handle, taken, bucket, flight, out, t_exec0,
+                      t_exec1)
+
     def _add_phases(self, bucket: int, split) -> None:
         """Add a finished step's phase and device seconds to the bucket's
         running sums (``stats_summary``)."""
@@ -316,7 +430,8 @@ class ServeRuntime:
                 dev[card] = dev.get(card, 0.0) + v
 
     def run_until_drained(self, max_steps: int = 100_000):
-        """Step until the queue is empty; responses in completion order.
+        """Step until nothing is queued or in flight; responses in
+        completion order.
 
         If a step fails (e.g. a model evicted since submit), the raised
         :class:`ServeError` carries the responses already served on its
@@ -325,7 +440,7 @@ class ServeRuntime:
         """
         done: list[InferResponse] = []
         for _ in range(max_steps):
-            if not self.queue:
+            if not self.pending():
                 return done
             try:
                 done.extend(self.step())
@@ -334,7 +449,7 @@ class ServeRuntime:
                 raise
         err = ServeError(
             f"queue not drained after {max_steps} steps "
-            f"({len(self.queue)} requests still pending)")
+            f"({self.pending()} requests still pending)")
         err.completed = done
         raise err
 
@@ -351,7 +466,10 @@ class ServeRuntime:
         - ``device_s``: ``{bucket: {card: seconds}}``, each card's device
           time between a replay's timing events (from its input copy to
           its last work, gaps inside counted busy: an upper bound), on
-          the card only (empty on the CPU).
+          the card only (empty on the CPU);
+        - ``launched_ahead``: ``{bucket: batches}`` launched while another
+          batch was in flight (0 on a plan that cannot launch
+          asynchronously).
 
         Every value is a fresh copy, so a snapshot taken earlier never
         changes as more steps run; two snapshots' difference is what ran
@@ -367,4 +485,5 @@ class ServeRuntime:
             "phase_s": {b: dict(v) for b, v in sorted(self.phase_s.items())},
             "device_s": {b: dict(sorted(v.items()))
                          for b, v in sorted(self.device_s.items())},
+            "launched_ahead": dict(sorted(self.launched_ahead.items())),
         }

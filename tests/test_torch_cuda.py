@@ -6,6 +6,8 @@ the reference package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1561,3 +1563,81 @@ def test_served_step_times_every_card_of_a_mesh(cards):
     for service_s, got in _serve_steps(rt, imgs, 5):
         assert sorted(got) == list(range(cards))
         assert all(0 < s <= service_s for s in got.values())
+
+
+def _lookahead_check(rt, imgs):
+    """Ten full bucket-64 batches and a tail of five through ``rt`` against
+    the same images through serial ``run_bucket``: the same rids, logits
+    bit for bit, stats and energies; every step's device seconds positive
+    on each card, and each card's sum over the steps within the wall time
+    (a batch answered by one step ran on the card during the step
+    before)."""
+    from repro_torch.study import StatsRecord, price_record
+
+    h = rt.registry.get("m")
+    h.warmup((1,))
+    n = len(imgs)
+    for im in imgs:
+        rt.submit(im, "m")
+    got, device_s = [], []
+    t0 = time.perf_counter()
+    while rt.pending():
+        before = rt.stats_summary()["device_s"]
+        step = rt.step()
+        after = rt.stats_summary()["device_s"]
+        b = step[0].bucket
+        device_s.append({c: v - before.get(b, {}).get(c, 0.0)
+                         for c, v in after[b].items()})
+        got += step
+    wall = time.perf_counter() - t0
+    assert [r.rid for r in got] == list(range(n))
+    assert rt.stats_summary()["launched_ahead"] == {64: 9}
+    assert all(v > 0 for d in device_s for v in d.values())
+    for card in device_s[0]:
+        assert sum(d.get(card, 0.0) for d in device_s) <= wall
+    for lo, b, k in [(i * 64, 64, 64) for i in range(10)] + [
+            (640 + j, 1, 1) for j in range(n - 640)]:
+        logits, stats = h.run_bucket(imgs[lo:lo + b], k)
+        e = price_record(
+            StatsRecord(events_in=stats.events_in.cpu().numpy(),
+                        spikes_out=stats.spikes_out.cpu().numpy(),
+                        add_ops=stats.add_ops.cpu().numpy(),
+                        queue_words=stats.queue_words.cpu().numpy(),
+                        overflow=stats.overflow.cpu().numpy()),
+            input_hw=32, compressed=h.cfg.compressed,
+            vmem_resident=h.vmem_resident)
+        for i, r in enumerate(got[lo:lo + k]):
+            assert np.array_equal(r.logits, logits[i].cpu().numpy())
+            for f in ("events_in", "spikes_out", "add_ops", "queue_words",
+                      "overflow"):
+                assert np.array_equal(getattr(r.stats, f),
+                                      getattr(stats, f)[i:i + 1].cpu()
+                                      .numpy()), f
+            assert r.energy_j == float(e.total_j[i])
+            assert r.model_latency_s == float(e.latency_s[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [None, "one_card_x2"])
+def test_served_lookahead_equals_serial_run_bucket(cuda, mesh):
+    """The runtime's look-ahead on a ``GraphPlan`` (and a ``ShardedPlan``
+    over a 2-way mesh on one card) answers as serial ``run_bucket``."""
+    from repro_torch import parallel
+
+    if mesh is not None:
+        mesh = parallel.DataMesh((torch.device("cuda", 0),) * 2)
+    rt, _ = _served_runtime(mesh)
+    imgs = np.random.default_rng(13).random((645, 32, 32, 3)).astype(
+        np.float32)
+    _lookahead_check(rt, imgs)
+
+
+@pytest.mark.cuda
+def test_served_lookahead_over_two_cards(cards):
+    """The same over a ``data_mesh`` of two cards."""
+    from repro_torch import parallel
+
+    rt, _ = _served_runtime(parallel.data_mesh(2))
+    imgs = np.random.default_rng(14).random((645, 32, 32, 3)).astype(
+        np.float32)
+    _lookahead_check(rt, imgs)
